@@ -16,6 +16,7 @@ import time
 import numpy as np
 
 import graphite_tpu as gt
+from graphite_tpu.runtime import enable_compile_cache
 from graphite_tpu.io import bal as bal_io
 from graphite_tpu.io import synthetic
 from graphite_tpu.optimizers import (
@@ -88,6 +89,7 @@ def main():
                     help="Huber loss delta")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    enable_compile_cache()
 
     precision = gt.Precision.from_names(*args.precision)
     if precision.graph_dtype == np.float64:

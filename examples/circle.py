@@ -17,6 +17,7 @@ import numpy as np
 import jax.numpy as jnp
 
 import graphite_tpu as gt
+from graphite_tpu.runtime import enable_compile_cache
 from graphite_tpu.optimizers import (
     LevenbergMarquardtOptions,
     levenberg_marquardt,
@@ -46,6 +47,7 @@ def main():
     ap.add_argument("--iterations", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    enable_compile_cache()
 
     precision = gt.Precision.from_names(*args.precision)
     rng = np.random.default_rng(args.seed)

@@ -15,6 +15,7 @@ import time
 import numpy as np
 
 import graphite_tpu as gt
+from graphite_tpu.runtime import enable_compile_cache
 from graphite_tpu.io import g2o, synthetic
 from graphite_tpu.optimizers import (
     LevenbergMarquardtOptions,
@@ -39,6 +40,7 @@ def main():
     ap.add_argument("--jit-loop", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    enable_compile_cache()
 
     precision = gt.Precision.from_names(*args.precision)
     if precision.graph_dtype == np.float64:

@@ -1,7 +1,7 @@
 """Custom-factor tutorial example: 2D range-bearing SLAM.
 
 Shows everything a user defines for a new problem class (the reference's
-docs/markdown/main.md tutorial, TPU-style):
+docs/markdown/main.md tutorial):
 
 - a manifold vertex type (SE2 robot pose with a custom retract);
 - a Euclidean vertex type (2D landmark);
@@ -20,6 +20,7 @@ import numpy as np
 import jax.numpy as jnp
 
 import graphite_tpu as gt
+from graphite_tpu.runtime import enable_compile_cache
 from graphite_tpu.models import lie, pose_graph as pg
 from graphite_tpu.optimizers import (
     LevenbergMarquardtOptions,
@@ -101,6 +102,7 @@ def main():
     ap.add_argument("--landmarks", type=int, default=40)
     ap.add_argument("--iterations", type=int, default=25)
     args = ap.parse_args()
+    enable_compile_cache()
 
     poses_true, lms_true, poses0, lms0, odo, obs = simulate(
         args.poses, args.landmarks

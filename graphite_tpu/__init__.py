@@ -1,14 +1,14 @@
-"""graphite_tpu: a TPU-native nonlinear least-squares factor-graph optimizer.
+"""graphite_tpu: a nonlinear least-squares factor-graph optimizer in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of sfu-rsl/graphite
+A from-scratch JAX/XLA rebuild of the capabilities of sfu-rsl/graphite
 (a GPU CUDA C++ factor-graph optimization framework for SLAM / bundle
-adjustment), re-designed TPU-first:
+adjustment), running on NVIDIA GPUs through XLA:
 
 - vertices and factors are value-semantics pytrees, not pointer tables;
 - Jacobians come from ``jax.jacfwd`` through manifold retractions (or
   user-supplied analytic functions), replacing Dual-number CUDA kernels;
-- all scatter-reductions are deterministic ``segment_sum``s instead of
-  ``atomicAdd``;
+- all scatter-reductions are ``segment_sum``s (which XLA lowers to the
+  reference's atomic adds on the GPU);
 - the sparse structure (Hessian blocks, Schur products) is discovered once
   per topology on the host and baked into static index arrays so
   relinearization never retraces;

@@ -1,6 +1,6 @@
 """Factor (constraint) traits and batched storage.
 
-TPU-native analog of the reference's factor traits + ``FactorDescriptor``
+JAX analog of the reference's factor traits + ``FactorDescriptor``
 (reference: include/graphite/factor.hpp:36-876, docs/markdown/main.md:179-322).
 
 A factor type is: a residual function over N vertex parameter blocks (any
@@ -51,7 +51,7 @@ class FactorType:
       jacobian_fn: optional analytic Jacobians
         ``(params..., obs, data) -> tuple[(E, dim_i)]`` w.r.t. each slot's
         *tangent*. When None (AUTO), ``jax.jacfwd`` through ``retract`` is
-        used instead — the TPU replacement for the reference's Dual-seeded
+        used instead — the replacement for the reference's Dual-seeded
         kernels (ops/error.hpp:100-180).
       loss: robust loss type applied to r^T P r (static per factor type;
         the per-factor parameter lives in the batch).

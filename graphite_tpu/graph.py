@@ -1,6 +1,6 @@
 """Graph container and topology freeze.
 
-TPU-native analog of the reference ``Graph<T,S>`` (include/graphite/graph.hpp:30-334)
+JAX analog of the reference ``Graph<T,S>`` (include/graphite/graph.hpp:30-334)
 plus the per-descriptor device setup (``initialize_optimization``,
 graph.hpp:92-167; ``initialize_device_ids``, factor.hpp:455-524;
 ``deactivate_unused_vertices``, graph.hpp:171-210).
@@ -44,14 +44,17 @@ from .vertices import VertexSet, VertexType
 
 
 def with_matmul_precision(fn):
-    """Run ``fn`` under the problem's matmul precision (fp32 policies need
-    'highest' on TPU — see Precision.matmul_precision)."""
+    """Run ``fn`` under the problem's matmul precision (see
+    Precision.matmul_precision) and a named scope of its own name, which
+    a profiler trace attributes the stage's device operations to."""
     import functools
 
     @functools.wraps(fn)
     def wrapped(*args, **kw):
         problem = next(a for a in args if hasattr(a, "precision"))
-        with jax.default_matmul_precision(problem.precision.matmul_precision):
+        with jax.default_matmul_precision(
+                problem.precision.matmul_precision), \
+                jax.named_scope(fn.__name__):
             return fn(*args, **kw)
 
     return wrapped
@@ -197,14 +200,14 @@ class Problem:
         self._cache: dict = {}
         # When set (inside shard_map over a factor-sharded mesh axis),
         # cross-factor reductions (b, diag, chi2, J^T v, Hessian values) are
-        # psum'ed over this axis — the TPU analog of multi-GPU assembly.
+        # psum'ed over this axis — multi-device assembly.
         self.psum_axis = None
         self.psum_size = None  # mesh axis size (enables Schur-stage sharding)
         # Large static index arrays (Hessian/Schur scatter maps). When a
         # jitted entry point binds tracers (bind_consts), `const` returns the
         # corresponding argument tracer so multi-hundred-MB index arrays ride
         # as executable ARGUMENTS instead of being inlined into the HLO
-        # (which blows past compile-payload limits at Venice-Final scale).
+        # (which makes the compiled module huge at Venice-1778 scale).
         self._const_store: dict = {}
         self._const_tracers = None
 
@@ -293,7 +296,7 @@ class Problem:
         wrapper._cell = cell  # introspection: tests assert no-retrace
         return wrapper
 
-    # ---- row-view helpers (TPU-fast gathers/scatters) ---------------------
+    # ---- row-view helpers (row-shaped gathers/scatters) -------------------
     def rows_view(self, x: jax.Array, vname: str) -> jax.Array:
         """Flat (dim_x,) -> (n_rows, dim) view of one type's segment."""
         d = self.vertex_meta[vname].vtype.dim
@@ -712,8 +715,8 @@ class Graph:
         # columns to active ones. The reference sorts by (eliminated,
         # global_id) only (graph.hpp:109-149); grouping by TYPE keeps every
         # vertex type's columns in one contiguous, uniformly-strided segment
-        # so flat vectors reshape to (rows, dim) for free — row-shaped
-        # gathers/scatters are ~6x faster than flat scalar indexing on TPU.
+        # so flat vectors reshape to (rows, dim) for free and gathers and
+        # scatters move whole rows, not scalars.
         # The semantic invariant (eliminated descriptors occupy the trailing
         # columns) is preserved.
         type_names = list(self.vertex_sets)

@@ -1,6 +1,6 @@
 """Block-sparse Hessian container.
 
-TPU-native analog of ``Hessian<T,S>`` / ``HessianBlocks`` / CSC utilities
+JAX analog of ``Hessian<T,S>`` / ``HessianBlocks`` / CSC utilities
 (reference: include/graphite/hessian.hpp:15-324, csc_utils.hpp:16-193).
 
 Structure discovery runs **once per topology** on the host in NumPy
@@ -18,9 +18,9 @@ block coordinates (hessian.hpp:48-85) and host offset maps (:270-278):
   direct/transposed target maps (the reference's transposed-rectangular
   handling, ops/hessian.hpp:39-49).
 
-Value recomputation (`compute_hessian_values`) is pure jit: batched einsums
-on the MXU + deterministic segment_sums, replacing per-block atomicAdd
-kernels (ops/hessian.hpp:9-78, factor.hpp:771-853).
+Value recomputation (`compute_hessian_values`) is pure jit: batched block
+products + segment_sums (atomic adds on the GPU), replacing the per-block
+atomicAdd kernels (ops/hessian.hpp:9-78, factor.hpp:771-853).
 
 LM damping (`apply_damping`) augments diagonal-block diagonals from the
 pre-damping backup: ``d + mu`` or ``d + mu*clamp(d, 1e-6, 1e32)``
@@ -66,7 +66,7 @@ class ContribMap:
     trans_idx: Optional[np.ndarray]
     # when the direct map hits each target block at most once AND this is the
     # group's only contributor, the scatter degenerates to an inverse-
-    # permutation GATHER (faster than scatter-add on TPU): (n_g+1,) source
+    # permutation GATHER (no scatter at all): (n_g+1,) source
     # factor index, or F (zero row) for untouched blocks
     direct_gather: Optional[np.ndarray] = None
 
@@ -436,9 +436,8 @@ def compute_hessian_values(problem, hs: HessianStructure,
         return pj_cache[k]
 
     # Above this factor count, contributions are processed in chunks via
-    # lax.scan so the transient (F, dr, dc) product (tile-padded on TPU)
-    # stays bounded (~0.5M x 16 x 128 x 4B ~ 4GB worst case -> chunked
-    # ~0.5GB); below it one fused pass is fastest.
+    # lax.scan so the transient (F, dr, dc) product stays bounded; below
+    # it one fused pass is fastest.
     chunk_limit = 1 << 20
 
     def contribute(group, idx_np, blk_flat, key, n_local):
@@ -466,16 +465,12 @@ def compute_hessian_values(problem, hs: HessianStructure,
         if problem.psum_axis is None:
             # Non-sharded: compute the flat (F, ds*dt) product rows in
             # byte-bounded scan_map chunks (no per-step accumulator
-            # folding), then reduce each destination with the cheapest
-            # primitive — inverse-permutation gather (unique dst),
-            # permute+streaming kernel (many segments), or one XLA
-            # segment_sum (few segments). On chip at Venice-Final scale
-            # this replaces a 10-step scan that folded a 540 MB carry
-            # through every step (reference: factor.hpp:771-853's
+            # folding), then reduce each destination with an
+            # inverse-permutation gather (unique dst) or one XLA
+            # segment_sum (reference: factor.hpp:771-853's
             # per-(i,j)-stream atomicAdd assembly).
             from .ops.streamreduce import mapped_rows as _mapped_rows
-            from .ops.streamreduce import reduce_rows_perm as \
-                _reduce_rows_perm
+            from .ops.streamreduce import reduce_rows as _reduce_rows
 
             fa = problem.data.factors[cm.fname]
             arrays = [J[cm.s], J[cm.t],
@@ -486,9 +481,7 @@ def compute_hessian_values(problem, hs: HessianStructure,
 
             def prod_body(chunk_arrays, E=E, ds=ds, dt_=dt_,
                           has_prec=has_prec):
-                # flat 2-D VPU block products: no tile-padded 3-D
-                # transients (a (F, 9, 9) einsum output costs 25x its
-                # bytes in HBM — ops/blockfmt.py)
+                # flat 2-D block products (ops/blockfmt.py)
                 js, jt, dl = chunk_arrays[:3]
                 jt = jt.astype(acc)
                 if has_prec:
@@ -512,18 +505,18 @@ def compute_hessian_values(problem, hs: HessianStructure,
                     inv]
             elif cm.direct_idx is not None:
                 values[cm.direct_group] = values[
-                    cm.direct_group] + _reduce_rows_perm(
+                    cm.direct_group] + _reduce_rows(
                         problem, ("hess_d", ci), flat, cm.direct_idx,
-                        hs.group_sizes[cm.direct_group] + 1, inv_dt)
+                        hs.group_sizes[cm.direct_group] + 1)
             if cm.trans_idx is not None:
                 # row-major (ds, dt) -> (dt, ds) transpose is a static
                 # lane permutation of the flat rows
                 tperm = np.arange(ds * dt_).reshape(ds, dt_).T.reshape(-1)
                 flat_t = flat[:, tperm]
                 values[cm.trans_group] = values[
-                    cm.trans_group] + _reduce_rows_perm(
+                    cm.trans_group] + _reduce_rows(
                         problem, ("hess_t", ci), flat_t, cm.trans_idx,
-                        hs.group_sizes[cm.trans_group] + 1, inv_dt)
+                        hs.group_sizes[cm.trans_group] + 1)
             continue
 
         if n_local <= chunk_limit:
@@ -677,8 +670,7 @@ def apply_damping(problem, hs: HessianStructure, values: HessianValues,
         # with the damped backup via a static diag mask. Diagonal blocks of
         # one type are almost always a CONTIGUOUS index range of the group
         # array — a static slice + dynamic_update_slice keeps the update
-        # pure-elementwise (the gather + row-scatter fallback costs ~100 ms
-        # per damping at Venice-Final: XLA serializes scatter rows).
+        # pure-elementwise instead of a gather + row scatter.
         n_idx = int(idxs.size)
         contig = (n_idx > 0 and int(idxs[-1]) - int(idxs[0]) == n_idx - 1
                   and bool(np.all(np.diff(idxs) == 1)))
@@ -727,11 +719,11 @@ def csc_values(problem, hs: HessianStructure, values: HessianValues) -> jax.Arra
 def dense_hessian_matrix(problem, hs: HessianStructure,
                          values: HessianValues) -> jax.Array:
     """Traced dense (dim_h, dim_h) H from block values — feeds the
-    on-device direct factorization path (the TPU analog of cudss's
+    on-device direct factorization path (the analog of cudss's
     full-matrix factorization, cudss.hpp:53-269; here the matrix is
-    densified block-wise and factorized by the HBM-resident blocked
-    Cholesky whose panels stream through VMEM — the hybrid-memory
-    analog). Upper-tri block storage is mirrored on scatter."""
+    densified block-wise and factorized by the blocked Cholesky of
+    ops/blocked_cholesky.py). Upper-tri block storage is mirrored on
+    scatter."""
     n = problem.dim_h
     if n > 46_340:  # flat offsets r*n+c must fit int32
         raise ValueError(

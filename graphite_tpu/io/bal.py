@@ -103,8 +103,8 @@ def build_graph(ds: BALDataset, precision=None, eliminate_points: bool = True,
     ``eliminate_points=True`` marks the point set for Schur elimination
     (bal.cu:155).
 
-    Observations are added in CSC-aligned (point, camera) order for
-    TPU-side reduction performance, so factor handles do NOT follow
+    Observations are added in CSC-aligned (point, camera) order, which
+    sorts the hot reduction destinations, so factor handles do NOT follow
     dataset row order; use ``fs.handle_of_input[row]`` /
     ``fs.input_order[handle]`` to convert.
     """
@@ -128,9 +128,8 @@ def build_graph(ds: BALDataset, precision=None, eliminate_points: bool = True,
     # per-iteration reduction destinations come out sorted — the
     # point-diagonal Hessian blocks, the Hpl/point-camera blocks (CSC
     # order is exactly (col=point, row=camera)), and the Schur attach
-    # lists — so the streaming reduction kernels engage with NO
-    # per-iteration permutation gathers (reduce_rows_perm detects
-    # sortedness at plan time; saves ~GBs/iteration at Venice-Final).
+    # lists — so those segment_sums run on sorted indices
+    # (reduce_rows detects sortedness at plan time).
     # The problem is order-independent semantically; the reference keeps
     # file order and pays with atomicAdd scatters (bal.cu:134-167).
     order = np.lexsort((ds.cam_idx, ds.point_idx))

@@ -1,6 +1,6 @@
 """Linearization engine: residuals, Jacobians, chi2, Jacobi scaling, b.
 
-TPU-native analog of ``Graph::linearize`` / ``compute_error`` / ``chi2``
+JAX analog of ``Graph::linearize`` / ``compute_error`` / ``chi2``
 (reference: graph.hpp:221-290) and the underlying kernels:
 
 - residual + autodiff Jacobian (ops/error.hpp:100-180, 252-293) becomes one
@@ -152,7 +152,7 @@ def _residual_and_jacobian_block(problem: Problem, params, name: str,
 
 
 #: factor counts above this are linearized in lax.map chunks of half this
-#: size, bounding the tile-padded (F, E, d) jacfwd transient.
+#: size, bounding the (F, E, d) jacfwd transient.
 LINEARIZE_CHUNK_LIMIT = 1 << 20
 
 
@@ -229,17 +229,16 @@ def _host_factor_rows(problem, fname: str, s: int,
 def _factor_row_reduce(problem, tag, contrib, fa, fname, s, vt_name, gdt):
     """(F, d) per-factor contributions -> (n_rows, d) per-vertex rows.
 
-    Non-sharded: freeze-planned reduction (streaming kernel for many
-    destinations, one XLA segment_sum otherwise — ops/streamreduce.py).
-    Sharded: the traced local fa.rows scatter (per-shard segment ids are
-    runtime values there).
+    Non-sharded: one segment_sum over the freeze-time host row ids
+    (ops/streamreduce.py). Sharded: the traced local fa.rows scatter
+    (per-shard segment ids are runtime values there).
     """
     n_seg = problem.seg_rows[vt_name] + 1
     if problem.psum_axis is None:
-        from .ops.streamreduce import reduce_rows_perm
+        from .ops.streamreduce import reduce_rows
 
         seg = _host_factor_rows(problem, fname, s, vt_name)
-        return reduce_rows_perm(problem, tag, contrib, seg, n_seg, gdt)[:-1]
+        return reduce_rows(problem, tag, contrib, seg, n_seg)[:-1]
     return jax.ops.segment_sum(
         contrib, fa.rows[s], num_segments=n_seg,
     )[:-1]
@@ -290,9 +289,9 @@ def linearize(problem: Problem, params) -> Linearization:
     chi2_deriv: Dict[str, jax.Array] = {}
 
     # 1. residuals + Jacobians + chi2. Jacobian blocks are kept flat (F, E*d)
-    # whenever HBM-resident (see ops/blockfmt.py) and reshaped transiently
+    # in device memory (see ops/blockfmt.py) and reshaped transiently
     # around einsums. Huge blocks are processed in lax.map chunks so the
-    # (F, E, d) jacfwd transient (tile-padded on TPU) stays bounded.
+    # (F, E, d) jacfwd transient stays bounded.
     for name, fm in problem.factor_meta.items():
         fa = problem.data.factors[name]
         r, jflat = _residuals_and_flat_jacobians(problem, params, name)
@@ -308,9 +307,8 @@ def linearize(problem: Problem, params) -> Linearization:
 
     # 2. Jacobi scaling (graph.hpp:254-281): diag of unscaled J^T dL P J.
     # Accumulated per vertex type in row form ((F,d) -> (n_rows+1,d) with a
-    # trash row), then flattened — row-shaped segment reductions are ~6x
-    # faster than flat scalar scatters on TPU; landmark-sized destination
-    # sets route through the streaming kernel (ops/streamreduce.py).
+    # trash row), then flattened (row-shaped segment reductions,
+    # ops/streamreduce.py).
     diag_rows: Dict[str, jax.Array] = {}
     for name, fm in problem.factor_meta.items():
         fa = problem.data.factors[name]

@@ -1,6 +1,6 @@
 """Robust loss kernels.
 
-TPU-native analog of the reference's ``Loss<T,E>`` virtual hierarchy
+JAX analog of the reference's ``Loss<T,E>`` virtual hierarchy
 (reference: include/graphite/loss.hpp:6-51). Instead of per-factor virtual
 objects stored in unified memory, a loss here is a *static* type per factor
 block plus an optional per-factor parameter array — so the whole batch

@@ -1,6 +1,6 @@
 """BAL (Bundle Adjustment in the Large) camera model.
 
-TPU-native analog of the reference's BAL example traits
+JAX analog of the reference's BAL example traits
 (reference: examples/bal.cuh:11-89, examples/reprojection_error.cuh:61-126):
 
 - camera vertex: 9 parameters [angle-axis rvec(3), translation t(3), focal f,
@@ -17,8 +17,7 @@ examples/reprojection_error.py). ``jax.jacfwd`` of the residual remains
 the oracle (``REPROJECTION_AUTO``; tests/test_bal_jacobian.py) and the
 ``GRAPHITE_TPU_BAL_AUTODIFF=1`` kill switch restores it as the default:
 the analytic form computes the shared projection chain once instead of
-pushing 12 forward tangents through it (~2.5x fewer VPU FLOPs at 5M
-factors, the dominant linearize cost at Venice-Final scale).
+pushing 12 forward tangents through it (~2.5x fewer FLOPs per factor).
 """
 
 from __future__ import annotations
@@ -128,9 +127,8 @@ def reprojection_jacobian(camera, point, obs):
 
     # --- everything below is SCALAR elementwise math: under the batched
     # vmap, tiny per-factor matrix products ((2,3)@(3,3) dot_generals,
-    # eye/outer constructions) lower to tile-padded batched matmuls that
-    # cost ~2x the jacfwd chain on TPU (tools/linearize_probe.py);
-    # expanded entries stay pure VPU lanes.
+    # eye/outer constructions) would lower to batched matmuls of tiny
+    # blocks; expanded entries stay elementwise and fuse.
     w0, w1, w2 = w[0], w[1], w[2]
     X0, X1, X2 = X[0], X[1], X[2]
     wxX0 = w1 * X2 - w2 * X1

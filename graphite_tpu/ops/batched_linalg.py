@@ -1,11 +1,10 @@
 """Batched small-block dense linear algebra.
 
-TPU-native replacement for cuBLAS ``matinvBatched`` on <=32x32 diagonal
+JAX replacement for cuBLAS ``matinvBatched`` on <=32x32 diagonal
 blocks (reference: preconditioner/block_jacobi.hpp:152-167,
 schur.hpp:1067-1114). Blocks here are SPD (they are J^T P J + LM damping), so
-closed forms (d<=3) / batched Cholesky are used instead of LU — LU is not
-implemented for batched f64 on the TPU backend and Cholesky is cheaper
-anyway. Inversions always run in ``InvP`` precision (never bf16/fp16,
+closed forms (d<=3) / batched Cholesky are used instead of LU (Cholesky
+is cheaper for SPD blocks). Inversions always run in ``InvP`` precision (never bf16/fp16,
 types.hpp:18-19).
 """
 
@@ -66,12 +65,10 @@ def spd_inverse(blocks: jax.Array) -> jax.Array:
 def spd_inverse_flat(flat: jax.Array, d: int) -> jax.Array:
     """`spd_inverse` on FLAT 2-D block storage: (N, d*d) -> (N, d*d).
 
-    For d <= 3 the closed form runs entirely on lane slices of the flat
-    array — no (N, d, d) view ever exists. A 3-D (N, 3, 3) batch is
-    tile-padded to (N, 8, 128) in HBM (~113x its logical bytes); at
-    Venice-Final scale (994k landmark blocks) the padded round trip
-    costs ~100+ ms while the flat form moves only 2 x 36 B/block
-    (ops/blockfmt.py invariant). Reference: schur.hpp:1067-1114.
+    For d <= 3 the closed form runs entirely on column slices of the flat
+    array — no (N, d, d) view ever exists, so it reads and writes
+    2 x d*d values per block (ops/blockfmt.py invariant). Reference:
+    schur.hpp:1067-1114.
     """
     if d == 1:
         return 1.0 / flat

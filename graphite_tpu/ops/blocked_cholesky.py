@@ -1,24 +1,24 @@
 """On-device blocked Cholesky factorization + triangular solves.
 
-TPU-native replacement for the reference's on-GPU sparse direct
+JAX replacement for the reference's on-GPU sparse direct
 factorization of the *reduced pose system* (cudss_schur.hpp:190-233):
 after Schur elimination the pose system is small (dim_p = 9·#cameras in
-BAL) and effectively dense, so a dense blocked Cholesky on the MXU beats
-both a host-callback sparse factorization (PCIe/ICI round-trip per LM
-iteration, the Eigen-solver pattern eigen.hpp:41-44) and XLA's built-in
-`jnp.linalg.cholesky` (whose While-loop panels serialize poorly on TPU
-for large n).
+BAL) and effectively dense, so a dense blocked Cholesky on the device
+replaces a host-callback sparse factorization per LM iteration (the
+Eigen-solver pattern, eigen.hpp:41-44). Whether XLA's own
+`jnp.linalg.cholesky` (cuSOLVER on the GPU) is as fast is an open
+measurement (ROADMAP §3 item 5).
 
 Design: statically-shaped divide-and-conquer ("recursive blocked",
 right-looking at every level):
 
     [A11 A12]      L11 = chol(A11)
     [A21 A22]  ->  L21 = A21 · L11^-T          (triangular solve, matmuls)
-                   L22 = chol(A22 - L21·L21^T) (SYRK on the MXU)
+                   L22 = chol(A22 - L21·L21^T) (SYRK)
 
 The recursion unrolls at trace time (shapes static, depth log2(n/base)),
-so everything between base-case factorizations is a large matmul — MXU
-work at exactly n^3/3 FLOPs. The triangular solves use the same
+so everything between base-case factorizations is a large matmul, at
+exactly n^3/3 FLOPs. The triangular solves use the same
 divide-and-conquer so no large `solve_triangular` ever reaches XLA's
 serial path.
 """

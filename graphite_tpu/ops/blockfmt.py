@@ -1,16 +1,11 @@
 """Flat 2-D storage convention for batches of small matrices.
 
-TPU tiles the last two array dimensions to (sublane, lane) = (8, 128)
-multiples, so a batch of small blocks stored (N, r, c) is padded to
-(N, 8k, 128) — e.g. (N, 9, 9) f32 occupies ~25x its logical size in HBM and
-every gather/scatter/elementwise pays that bandwidth. Stored flat as
-(N, r*c), padding drops to one lane-dim round-up (~1.6x for 81).
-
-Convention: every HBM-resident batch of blocks (Jacobians, Hessian block
-groups, Schur blocks, inverted diagonal blocks, precision matrices) is kept
-flat 2-D; compute reshapes transiently around einsums, which XLA fuses so
-the padded 3-D form never materializes in HBM. Measured on TPU v5e:
-segment_sum (86545, 9, 9) -> 1274 takes 9.0 ms as 3-D vs 1.8 ms as 2-D.
+Convention: every batch of small blocks kept in device memory (Jacobians,
+Hessian block groups, Schur blocks, inverted diagonal blocks, precision
+matrices) is stored flat 2-D, (N, r*c); compute reshapes transiently
+around einsums, which XLA fuses, so a 3-D (N, r, c) form exists only
+inside a fusion. Whether the flat layout still pays on the GPU is an open
+measurement (ROADMAP §3 item 6).
 """
 
 from __future__ import annotations
@@ -31,20 +26,15 @@ def unflatten_blocks(a: jax.Array, r: int, c: int) -> jax.Array:
 
 
 # --------------------------------------------------------------------------
-# Fused flat block products (VPU)
+# Fused flat block products
 #
-# A batched einsum over (N, r, c) blocks produces a tile-padded 3-D result;
-# XLA only avoids materializing it when the consumer fuses (segment_sum
-# does, a pallas_call or a gather does NOT — at (86545, 9, 9) f32 that is a
-# 212 MB HBM round-trip, ~2.6 ms, dominating the whole Schur stage). These
-# helpers compute small-block matmuls directly in flat (N, r*c) layout as a
-# k-length loop of column repeat/tile multiplies — pure 2-D elementwise VPU
-# work that XLA fuses end-to-end, with exact fp32 multiplies (no bf16
-# matmul passes), so results are bit-identical to a HIGHEST-precision MXU
-# einsum or better.
+# These helpers compute small-block matmuls directly in flat (N, r*c)
+# layout as a k-length loop of column repeat/tile multiplies — elementwise
+# work that XLA fuses end-to-end (into the gathers that feed it and the
+# segment_sum that consumes it), with exact fp32 multiplies (no reduced-
+# precision matmul passes), so results match a HIGHEST-precision einsum.
 #
-# Use for k (the contraction dim) small (<= ~16); for large blocks the MXU
-# einsum wins despite the relayout.
+# Use for k (the contraction dim) small (<= ~16).
 # --------------------------------------------------------------------------
 
 
@@ -110,11 +100,9 @@ def flat_block_mv(a_flat: jax.Array, x: jax.Array, m: int, k: int,
     a_flat: (N, m*k) row-major blocks; x: (N, k). Returns (N, m):
     out[n, r] = sum_c A[n, r, c] * x[n, c].
 
-    Small-k blocks stay pure 2-D VPU work (k lane-strided slices of the
-    flat storage, each a (N, m) FMA): the former batched einsum forced a
-    tile-padded (N, m, k) relayout of the operand, which at Venice-Final's
-    1.58M 9x9 S blocks made each PCG matvec read ~25x its logical bytes
-    (56 ms vs the ~3 ms flat form, tools/smv_variant_probe.py).
+    Small-k blocks stay pure 2-D elementwise work (k strided column
+    slices of the flat storage, each a (N, m) FMA) with no relayout of
+    the operand.
     """
     acc_dtype = acc_dtype or jnp.result_type(a_flat.dtype, x.dtype)
     if k > 16:
@@ -134,7 +122,8 @@ def flat_block_mv_t(a_flat: jax.Array, x: jax.Array, m: int, k: int,
 
     a_flat: (N, m*k) row-major blocks (m rows, k cols); x: (N, m).
     Returns (N, k): out[n, c] = sum_r A[n, r, c] * x[n, r].
-    Pure 2-D VPU for small m (contiguous lane slices); see flat_block_mv.
+    Pure 2-D elementwise work for small m (contiguous column slices); see
+    flat_block_mv.
     """
     acc_dtype = acc_dtype or jnp.result_type(a_flat.dtype, x.dtype)
     if m > 16:

@@ -1,10 +1,9 @@
 """Generic chunked execution over a leading axis via lax.scan.
 
-TPU tile padding makes (K, r, c) transients cost up to 25x their logical
-bytes; at multi-million-row scale a single fused einsum can exceed HBM by
-itself, and a Python loop of chunk ops lets XLA keep every chunk's temp
-alive simultaneously. ``scan_chunks`` serializes the chunks with one shared
-temp buffer:
+At multi-million-row scale a single fused batch of block products can
+exceed device memory by itself, and a Python loop of chunk ops lets XLA
+keep every chunk's temp alive simultaneously. The scan helpers serialize
+the chunks with one shared temp buffer:
 
 - ``accumulate``: body folds each chunk into a carry (segmented reductions);
 - ``map``: bodies produce per-chunk outputs, restacked to (K, ...).
@@ -12,10 +11,19 @@ temp buffer:
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import jax
 import jax.numpy as jnp
+
+
+def device_bytes_limit(device=None) -> Optional[int]:
+    """Bytes the allocator of ``device`` (default: the first device) may
+    hand out, or None where the backend reports no limit (the CPU)."""
+    stats = (device or jax.devices()[0]).memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        return None
+    return int(stats["bytes_limit"])
 
 
 def _pad_reshape(a: jax.Array, chunk: int, n: int, fill=0):

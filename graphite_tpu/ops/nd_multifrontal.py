@@ -1,6 +1,6 @@
 """Nested-dissection multifrontal block Cholesky (on-device, any dim_h).
 
-TPU-native replacement for the reference's sparse on-GPU factorization
+JAX replacement for the reference's sparse on-GPU factorization
 (`cudss.hpp:53-269`): where cuDSS runs a supernodal factorization with
 random-access scatter/gather and host-RAM spill (cudss.hpp:112-127), this
 module restates the factorization as LEVEL-BATCHED dense linear algebra:
@@ -14,8 +14,9 @@ module restates the factorization as LEVEL-BATCHED dense linear algebra:
   depth are batched into (n_l, W, W) arrays (padded to the level's max
   front size, dead columns carry an identity diagonal), factorized with
   batched Cholesky + triangular solves, and their Schur updates
-  extend-added into the parent level with ONE static scatter. The MXU
-  sees dense batched matmuls; no data-dependent control flow exists.
+  extend-added into the parent level with ONE static scatter. The
+  device sees dense batched matmuls; no data-dependent control flow
+  exists.
 
 Shapes are static per problem: relinearization re-runs the numeric
 phase without retracing (structure is host-side, compute is jit —

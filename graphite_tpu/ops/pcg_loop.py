@@ -67,5 +67,6 @@ def run_pcg(b: jax.Array, matvec: Callable, precond: Callable,
         )
 
     init = (jnp.asarray(0), x0, r0, p0, z0, rz0, inf, jnp.asarray(False))
-    _, x, *_ = jax.lax.while_loop(cond, body, init)
+    with jax.named_scope("pcg"):
+        _, x, *_ = jax.lax.while_loop(cond, body, init)
     return x

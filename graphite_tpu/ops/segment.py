@@ -1,10 +1,11 @@
 """Deterministic scatter-reduction helpers.
 
-TPU-native replacement for the reference's ``atomicAdd`` scatters into ``b``,
+JAX replacement for the reference's ``atomicAdd`` scatters into ``b``,
 Hessian blocks and J^T v outputs (ops/linearize.hpp:302, ops/hessian.hpp:76,
-ops/product.hpp:287). ``segment_sum`` has a fixed reduction order, so unlike
-the reference (whose chi2/atomics are explicitly non-deterministic,
-levenberg_marquardt.hpp:372) results are bit-reproducible run to run.
+ops/product.hpp:287). On the GPU XLA lowers ``segment_sum`` to atomic adds,
+so, as in the reference (whose chi2/atomics are explicitly
+non-deterministic, levenberg_marquardt.hpp:372), float sums can differ in
+the last bits from run to run; on the CPU the order is fixed.
 """
 
 from __future__ import annotations

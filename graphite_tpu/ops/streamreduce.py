@@ -1,80 +1,23 @@
-"""Gather-aware segmented-reduction helpers shared by the hot stages.
+"""Row gathers and segmented reductions shared by the hot stages.
 
-On-chip microbenchmarks at Venice-Final shapes (tools/venice_microbench.py,
-tools/gather_micro.py) established three facts that shape every reduction
-site in linearize / hessian / schur:
-
-- XLA's scatter-add segment_sum costs ~229 ms for 5M rows -> 1M segments
-  (sorted or not) while the streaming Pallas kernel does it in ~21 ms;
-  with FEW segments (~2k) one XLA segment_sum is cheap (~44 ms).
-- Narrow (9-27 lane) row gathers run 2-6x over their bytes even for
-  monotone indices; identity gathers must be ELIMINATED, not optimized.
-- Folding an accumulator through a scan (the old CHUNK=2^16 paths) pays
-  the full output size in HBM traffic per step.
-
-Reference parity: these replace the reference's atomicAdd scatters
-(ops/linearize.hpp:302, ops/hessian.hpp:76, ops/schur.hpp:190-263) with
-deterministic destination-sorted reductions.
+Every reduction site in linearize / hessian / schur turns (K, D) product
+rows into (num_segments, D) destination rows with one XLA segment_sum.
+Reference parity: these are the reference's atomicAdd scatters
+(ops/linearize.hpp:302, ops/hessian.hpp:76, ops/schur.hpp:190-263); on the
+GPU XLA lowers segment_sum to the same atomic adds, so the summation order
+(and the last bits of a float32 sum) can change from run to run.
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 
-from ..hostops import stable_argsort
 from .chunked import scan_map
 
 # Byte budget for scan_map product chunks feeding a reduction (bounds each
-# step's gathered-row transient; the (K, D) product buffer is narrow and
-# lives once in HBM).
+# step's gathered-row transient).
 MAP_BYTES = 64 << 20
-
-STREAM_CHUNK = 2048
-
-# XLA's TPU row gather runs at 90-113 GB/s when rows are >= 64 f32 lanes
-# (256 B) and ~11 GB/s (per-row overhead dominated) below
-# (tools/gather_width_probe.py, tools/fused_kernel_variants.py). Hot
-# many-row gathers therefore read from lane-padded tables and slice the
-# live lanes back out (XLA fuses the slice into the consumer).
-WIDE_LANES = 64
-
-
-def wide_table(table, min_lanes: int = WIDE_LANES):
-    """Zero-pad a (N, d) row table to the fast-gather lane width.
-
-    The pad is fenced with ``optimization_barrier``: without it XLA fuses
-    the concat INTO the downstream gather, the wide buffer never
-    materializes, and the gather stays on the narrow-row slow path
-    (observed in situ: no speedup vs a 3x win with materialized inputs,
-    tools/fused_kernel_variants.py vs tools/schur_stage_probe.py).
-    """
-    d = table.shape[1]
-    if d >= min_lanes:
-        return table
-    padded = jnp.concatenate(
-        [table, jnp.zeros((table.shape[0], min_lanes - d), table.dtype)],
-        axis=1)
-    return jax.lax.optimization_barrier(padded)
-
-# Below this many segments one XLA segment_sum beats permute+stream
-# (44 ms into 1.8k rows vs 229 ms into 1M at K=5M).
-STREAM_MIN_SEGMENTS = 65536
-
-
-def use_pallas(problem, dtype, sharded_ok: bool = False) -> bool:
-    if os.environ.get("GRAPHITE_TPU_NO_PALLAS"):
-        return False
-    if problem.psum_axis is not None and not sharded_ok:
-        # inside shard_map most kernels keep the portable path; the
-        # dst-partitioned product stage passes sharded_ok (its plan is
-        # SPMD-uniform by construction)
-        return False
-    return (jax.default_backend() not in ("cpu",)
-            and jnp.dtype(dtype) == jnp.dtype(jnp.float32))
 
 
 def map_chunk_rows(row_bytes: int, align: int = 2048) -> int:
@@ -92,16 +35,14 @@ def mapped_rows(body, arrays, k: int, row_bytes: int):
 
 
 def maybe_rows(problem, tag, arr, idx: np.ndarray):
-    """arr[idx] with identity gathers ELIMINATED: on chip a (5M, 27) row
-    gather costs ~115-182 ms even for monotone indices while the array
-    itself is free; CSC-ordered structures make many hot index arrays
-    exactly iota.
+    """arr[idx] with identity gathers eliminated: CSC-ordered structures
+    make many hot index arrays exactly iota, and reading the array itself
+    costs nothing.
 
     Prefix-iota counts too: Hessian value groups carry one trailing TRASH
     row (masking-not-compaction, graph.py), so ``arange(n)`` into an
     (n+1)-row array is the common shape — a free ``arr[:n]`` slice, not a
-    gather (this exact miss cost ~200 ms/call in Venice-Final
-    schur_values before round 3)."""
+    gather."""
     idx = np.asarray(idx)
     ident = problem._cache.setdefault("identity_idx", {})
     if tag not in ident:
@@ -117,85 +58,17 @@ def maybe_rows(problem, tag, arr, idx: np.ndarray):
     return arr[problem.const(tag, idx.astype(np.int32))]
 
 
-def get_stream_plan(problem, tag, seg: np.ndarray, num_segments: int,
-                    dtype, chunk: int = STREAM_CHUNK):
-    """Cached streaming-segsum plan for a destination-sorted reduction
-    site, or None when the site must use XLA's segment_sum (CPU backend,
-    inside shard_map, non-f32, unsorted segments, or infeasible window)."""
-    if not use_pallas(problem, dtype):
-        return None
-    plans = problem._cache.setdefault("stream_site_plans", {})
-    if tag not in plans:
-        from .pallas.segsum_stream import plan_streaming_segsum
+def reduce_rows(problem, tag, y, seg: np.ndarray, num_segments: int):
+    """(K, D) product rows -> (num_segments, D) by one XLA segment_sum.
 
-        seg = np.asarray(seg)
-        if seg.size == 0 or np.any(np.diff(seg) < 0):
-            plans[tag] = dict(feasible=False)
-        else:
-            plans[tag] = plan_streaming_segsum(
-                seg.astype(np.int32), num_segments, chunk=chunk)
-    p = plans[tag]
-    return p if p.get("feasible") else None
-
-
-def stream_consts(problem, tag, plan) -> dict:
-    return dict(
-        seg_pad=problem.const(tag + ("seg",), plan["seg_pad_2d"]),
-        starts=problem.const(tag + ("starts",), plan["starts"]),
-        nflush=problem.const(tag + ("nflush",), plan["nflush"]),
-        bases=problem.const(tag + ("bases",), plan["bases"]),
-    )
-
-
-def reduce_rows(problem, tag, y, seg: np.ndarray, num_segments: int,
-                dtype):
-    """(K, D) product rows -> (num_segments, D) via the streaming Pallas
-    kernel when the destination is sorted + feasible, else ONE XLA
-    segment_sum."""
-    plan = get_stream_plan(problem, tag + ("stream",), seg, num_segments,
-                           dtype, chunk=STREAM_CHUNK)
-    if plan is not None:
-        from .pallas.segsum_stream import streaming_segment_sum
-
-        return streaming_segment_sum(
-            y, plan, **stream_consts(problem, tag, plan)
-        ).astype(y.dtype)
-    return jax.ops.segment_sum(
-        y, problem.const(tag + ("seg",), np.asarray(seg).astype(np.int32)),
-        num_segments=num_segments,
-    )
-
-
-def reduce_rows_perm(problem, tag, y, seg: np.ndarray, num_segments: int,
-                     dtype):
-    """Like `reduce_rows` for UNSORTED destinations with MANY segments:
-    fold a freeze-time sort permutation into one narrow row gather of the
-    product rows, then stream. Below STREAM_MIN_SEGMENTS (or when the
-    kernel is unavailable) one XLA segment_sum wins instead."""
+    ``seg`` is a static host array; when it is non-decreasing the sum is
+    told so (``indices_are_sorted``), which the freeze-time CSC order
+    makes the common case for landmark destinations."""
     seg = np.asarray(seg)
-    if (num_segments < STREAM_MIN_SEGMENTS
-            or not use_pallas(problem, dtype)
-            or seg.size == 0 or np.all(np.diff(seg) >= 0)):
-        return reduce_rows(problem, tag, y, seg, num_segments, dtype)
-    perms = problem._cache.setdefault("stream_site_perms", {})
-    if tag not in perms:
-        perms[tag] = stable_argsort(
-            seg.astype(np.int64), num_segments).astype(np.int32)
-    perm = perms[tag]
-    plan = get_stream_plan(problem, tag + ("pstream",), seg[perm],
-                           num_segments, dtype, chunk=STREAM_CHUNK)
-    if plan is None:
-        return jax.ops.segment_sum(
-            y, problem.const(tag + ("seg",), seg.astype(np.int32)),
-            num_segments=num_segments,
-        )
-    from .pallas.segsum_stream import streaming_segment_sum
-
-    # the permutation gather is row-overhead-bound below 256-byte rows:
-    # pad to the fast-gather width (HBM layout is lane-tiled to 128
-    # either way), reduce wide, slice the live lanes back out
-    d = y.shape[1]
-    y_sorted = wide_table(y)[problem.const(tag + ("perm",), perm)]
-    return streaming_segment_sum(
-        y_sorted, plan, **stream_consts(problem, tag + ("p",), plan)
-    )[:, :d].astype(y.dtype)
+    srt = problem._cache.setdefault("seg_sorted", {})
+    if tag not in srt:
+        srt[tag] = bool(seg.size == 0 or np.all(np.diff(seg) >= 0))
+    return jax.ops.segment_sum(
+        y, problem.const(tag + ("seg",), seg.astype(np.int32)),
+        num_segments=num_segments, indices_are_sorted=srt[tag],
+    )

@@ -1,6 +1,6 @@
 """Adam on the factor graph.
 
-TPU-native analog of ``optimizer::adam`` (reference: optimizer/adam.hpp:104-135
+JAX analog of ``optimizer::adam`` (reference: optimizer/adam.hpp:104-135
 and the fused step kernel ops/vector.hpp:89-121): gradient ``g = -b``,
 bias-corrected first/second moments, ``step = -lr * m_hat / (sqrt(v_hat)+eps)``
 applied through the graph update; relinearizes every iteration.

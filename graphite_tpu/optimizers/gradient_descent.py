@@ -1,6 +1,6 @@
 """Gradient descent on the factor graph.
 
-TPU-native analog of ``optimizer::gradient_descent``
+JAX analog of ``optimizer::gradient_descent``
 (reference: optimizer/gradient_descent.hpp:94-123): each iteration
 relinearizes and steps ``delta_x = alpha * b`` (``b = -grad(1/2 chi2)`` of the
 scaled system); no line search, no accept/reject.

@@ -1,6 +1,6 @@
 """Levenberg-Marquardt.
 
-TPU-native analog of ``optimizer::levenberg_marquardt`` /
+JAX analog of ``optimizer::levenberg_marquardt`` /
 ``levenberg_marquardt2`` (reference: optimizer/levenberg_marquardt.hpp:109-242,
 255-417). Semantics preserved:
 
@@ -73,7 +73,7 @@ class LevenbergMarquardtOptions:
     # levenberg_marquardt2 early-stop (":403-413"); None disables.
     early_stop_bad_steps: Optional[int] = None
     early_stop_relative: float = 1e-3
-    # capture a device trace of the optimization (jax.profiler) — the TPU
+    # capture a device trace of the optimization (jax.profiler) — an
     # upgrade of the reference's wall-clock-only instrumentation
     # (levenberg_marquardt.hpp:153-163)
     profile_dir: Optional[str] = None
@@ -290,9 +290,7 @@ def levenberg_marquardt(problem, solver, params=None,
 
             def run_all(p):
                 # initial linearize/prepare fused into the same program as
-                # the while loop: one device program per optimization call
-                # (a separate init program pays a full RPC round-trip on
-                # remote-attached TPUs).
+                # the while loop: one device program per optimization call.
                 #
                 # The step closure MUST be created inside run_all: JAX
                 # caches while_loop body jaxprs keyed on the body function
@@ -316,8 +314,8 @@ def levenberg_marquardt(problem, solver, params=None,
             problem._cache[key] = problem.jit_with_consts(run_all)
         t0 = _time.perf_counter()
         initial_chi2, carry = problem._cache[key](params)
-        # ONE batched device->host transfer: individual float()/int() pulls
-        # each pay a full RPC round-trip on remote-attached TPUs.
+        # ONE batched device->host transfer instead of one synchronizing
+        # float()/int() pull per value.
         chi2, initial_chi2, mu, k, num_accepted, run, trace = jax.device_get(
             (carry.chi2, initial_chi2, carry.mu, carry.k,
              carry.num_accepted, carry.run, carry.trace))

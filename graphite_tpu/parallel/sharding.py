@@ -2,11 +2,12 @@
 
 The reference is a single-process, single-GPU library (SURVEY.md §2
 checklist: no DP/TP/PP of any kind; CUDA streams are the only concurrency).
-Scaling beyond one chip is therefore a pure extension: the natural axis is
+Scaling beyond one card is therefore a pure extension: the natural axis is
 **factor parallelism** — shard every factor batch's leading F dimension
 across the mesh, replicate vertex parameters and solver vectors, and psum
 the cross-factor reductions (b, scalar/block diagonals, chi2, J^T v,
-Hessian block values) over ICI.
+Hessian block values). The mesh is flat and 1-D: every card reaches every
+other at the same NVLink rate, so the mesh follows the algorithm alone.
 
 Mechanics:
 - ``Graph.freeze(pad_factors_to=n_devices)`` pads every factor block with
@@ -17,15 +18,16 @@ Mechanics:
   the same single-chip kernels run on the local shard, and every
   cross-factor reduction point calls ``problem.allreduce`` (lax.psum);
 - the Schur triple-product stage is SHARDED too (schur.py): each device
-  computes a 1/n slice of every ProductDim group's pair products and
-  partial segment-sums, combined by one psum per destination group —
-  the dominant stage at scale runs at 1/n per-device work. Hll inversion
+  computes the pair products of one contiguous, segment-aligned range of
+  destination blocks, and one all-gather of the disjoint slices
+  reassembles S — the dominant stage at scale runs at 1/n per-device
+  work. Hll inversion
   and W = Hpl Hll^{-1} stay replicated (cheap). The full LM step,
   including PCG-Schur, runs inside one ``shard_map``.
 
 The LM while_loop itself runs *inside* shard_map (`sharded_lm`), so a whole
-optimization is one XLA program with all collectives scheduled by XLA on
-ICI — zero host round-trips.
+optimization is one XLA program with all collectives scheduled by XLA —
+zero host round-trips.
 """
 
 from __future__ import annotations
@@ -157,11 +159,18 @@ def sharded_lm(problem, mesh: Mesh, solver, options, params=None,
         out = (carry.params, carry.chi2, carry.k, carry.num_accepted)
         return out + ((carry.trace,) if with_trace else ())
 
-    pspec = jax.tree.map(lambda _: P(), problem.params0)
-    f = shard_map(
-        local, mesh,
-        in_specs=(data_specs(problem, axis), pspec),
-        out_specs=(pspec, P(), P(), P()) + ((P(),) if with_trace else ()),
-    )
-    out = jax.jit(f)(data, params)
-    return out
+    # the compiled program is cached on the problem (as the single-device
+    # jit loop is), so a second call with the same mesh, solver and
+    # options runs without a retrace
+    key = ("sharded_lm", id(mesh), id(solver),
+           tuple(sorted(dataclasses.asdict(options).items())), axis,
+           with_trace)
+    if key not in problem._cache:
+        pspec = jax.tree.map(lambda _: P(), problem.params0)
+        problem._cache[key] = jax.jit(shard_map(
+            local, mesh,
+            in_specs=(data_specs(problem, axis), pspec),
+            out_specs=(pspec, P(), P(), P())
+            + ((P(),) if with_trace else ()),
+        ))
+    return problem._cache[key](data, params)

@@ -1,8 +1,8 @@
 """FLOP ledger and MFU accounting.
 
 The reference ships no FLOP counting at all (BASELINE.md: wall-clock tables
-only, levenberg_marquardt.hpp:153-163); BASELINE.json's north star is stated
-in GFLOP/s/chip, so the rebuild grounds its perf claims here:
+only, levenberg_marquardt.hpp:153-163), so the rebuild grounds its perf
+claims here:
 
 - `flop_ledger(problem, ...)` counts the *useful* (algorithmic) FLOPs of each
   LM-iteration stage analytically from the static freeze-time structure —
@@ -12,8 +12,8 @@ in GFLOP/s/chip, so the rebuild grounds its perf claims here:
 - `xla_flops(fn, *args)` returns XLA's own cost analysis of a compiled
   program (executed FLOPs, including padding/waste) — used for the stages
   whose cost depends on user residual functions (linearize).
-- `device_peak()` returns the chip's peak matmul FLOP/s so measured times
-  convert to MFU.
+- `device_peak()` returns the card's published peak bf16 matmul FLOP/s and
+  memory bandwidth so measured times convert to MFU and roofline shares.
 
 Conventions: one fused multiply-add = 2 FLOPs; `jnp.linalg.inv`/Cholesky of
 a d x d block = 2*d^3 (the constant hardly matters at d <= 9).
@@ -28,32 +28,26 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Peak dense-matmul throughput per chip, FLOP/s. MXU peaks are for bf16
-# inputs with fp32 accumulation (the native MXU mode). An f32 matmul at
-# matmul_precision='highest' runs 6 bf16 passes, 'high' runs 3 ('tensorfloat'
-# ~1); MFU is conventionally reported against the bf16 peak.
-_PEAKS = {
-    # TPU v5e ("v5 lite"): 197 TFLOP/s bf16, 819 GB/s HBM
-    "v5 lite": dict(bf16=197e12, hbm_gbps=819.0),
-    "v5e": dict(bf16=197e12, hbm_gbps=819.0),
-    "v5p": dict(bf16=459e12, hbm_gbps=2765.0),
-    "v4": dict(bf16=275e12, hbm_gbps=1228.0),
-    "v6e": dict(bf16=918e12, hbm_gbps=1640.0),
-}
+# Published peaks per device kind: dense bf16 matmul FLOP/s (no sparsity)
+# and device-memory GB/s. A kind matches when its ``device_kind`` contains
+# every tag. Source: NVIDIA H100 SXM data sheet; the rates assume the full
+# 700 W power limit, so report a card's power limit beside any share of them.
+_PEAKS = (
+    (("h100", "hbm3"), dict(bf16=989e12, hbm_gbps=3350.0)),
+)
 
 
-def device_peak(device=None) -> Dict[str, float]:
-    """Peak bf16 matmul FLOP/s + HBM GB/s for the (first) local device.
-
-    Unknown device kinds (e.g. the CPU backend used in tests) return zeros —
-    callers should then skip MFU reporting rather than divide by a guess.
-    """
+def device_peak(device=None) -> Optional[Dict[str, float]]:
+    """Peak bf16 matmul FLOP/s + memory GB/s of ``device`` (default: the
+    first local device), or None for a device kind not in the table — the
+    caller then omits MFU and roofline shares instead of dividing by a
+    guess."""
     device = device or jax.devices()[0]
     kind = getattr(device, "device_kind", "").lower()
-    for tag, peak in _PEAKS.items():
-        if tag in kind:
+    for tags, peak in _PEAKS:
+        if all(t in kind for t in tags):
             return dict(peak)
-    return dict(bf16=0.0, hbm_gbps=0.0)
+    return None
 
 
 def xla_flops(compiled) -> float:
@@ -183,9 +177,7 @@ def bytes_ledger(problem, pcg_iters: int = 10) -> Dict[str, float]:
 
     This workload is bandwidth-bound (3x3..9x9 block gather/scatter), so
     the meaningful roofline is achieved GB/s against these bytes, not
-    GFLOP/s (VERDICT r3: the two dominant Venice-Final stages sat 6-10x
-    below the measured gather fast path with nobody able to see it).
-    bench.py reports ``gbps_floor = bytes_floor / measured_ms`` per stage
+    GFLOP/s. bench.py reports ``gbps_floor = bytes_floor / measured_ms`` per stage
     alongside XLA's own bytes-accessed figure for the compiled program.
 
     Granularity choices (documented so the ratios mean something):

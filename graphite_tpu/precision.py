@@ -1,6 +1,6 @@
 """Precision policies.
 
-TPU-native analog of the reference's two template precisions ``T``/``S``
+JAX analog of the reference's two template precisions ``T``/``S``
 (reference: include/graphite/graph.hpp:24-29, include/graphite/types.hpp:10-48):
 
 - ``graph_dtype`` (reference ``T``): vertex state, residuals, ``b``, ``delta_x``.
@@ -9,9 +9,7 @@ TPU-native analog of the reference's two template precisions ``T``/``S``
   small block inversions and diagonal accumulation — never a low-precision
   type; equals ``graph_dtype`` whenever ``solver_dtype`` is low precision.
 
-On TPU, fp64 is emulated and slow; fp64 policies are intended for the CPU
-backend (correctness oracles) while fp32/bf16 policies are the TPU perf path.
-All MXU contractions accumulate in ``acc_dtype`` via ``preferred_element_type``
+All contractions accumulate in ``acc_dtype`` via ``preferred_element_type``
 (always >= fp32).
 """
 
@@ -67,64 +65,18 @@ class Precision:
 
     @property
     def matmul_precision(self) -> str:
-        """Element-multiplication precision for MXU contractions.
+        """Element-multiplication precision for matrix contractions.
 
-        TPU f32 matmuls default to single-pass bf16 inputs, which destroys
-        the Schur complement's cancellation (S = Hpp - correction) — so
-        every policy uses 'highest' (multi-pass, f32-exact). For
-        low-precision solver dtypes this costs nothing where it used to be
-        thought to matter: matmuls whose inputs are ALREADY bf16 (stored
-        Jacobians) are exact in a single pass regardless of the setting,
-        so 'highest' only restores accuracy on the f32-input matmuls
-        (jacfwd linearization, the dense-S PCG matvec, Cholesky panels) —
-        which is exactly where the former 'default' choice cost FP32_BF16
-        a 1.44x final-chi2 gap (BENCHMARKS.md round-2 precision sweep;
-        closed in round 3).
-
-        ``GRAPHITE_TPU_MATMUL_PRECISION`` overrides (e.g. 'high' = bf16x3,
-        ~1e-6 rel err on the Schur cancellation, or 'default' to restore
-        the old bf16-policy behavior); most fp32 FLOPs run on the VPU
-        (ops/blockfmt.py) so the override mainly affects jacfwd
-        linearization and the dense-S PCG matvec.
+        Always 'highest': on the GPU an f32 matmul may otherwise run in
+        TF32 (about three decimal digits), which destroys the Schur
+        complement's cancellation (S = Hpp - correction). Inputs that are
+        already bf16 (stored Jacobians) multiply exactly either way.
         """
-        import os
-
-        override = os.environ.get("GRAPHITE_TPU_MATMUL_PRECISION")
-        if override:
-            return override
         return "highest"
 
     @property
-    def stream_dtype(self):
-        """Storage dtype for the HBM-streamed gather copies on the hot
-        Schur paths (the W/Hpl pair streams feeding the fused triple-
-        product kernel, the S-matvec copies, the x row streams).
-
-        These copies are pure bandwidth: the kernels upcast to f32 on
-        load and accumulate in f32, so storing them in bf16 halves the
-        dominant HBM traffic of the two stages that bound Venice-Final
-        throughput (BENCHMARKS.md stage tables) at a ~2^-8 relative
-        rounding of the *operands* only — NOT of the S values, solves,
-        or accumulations, which all stay in ``inv_dtype``. Default
-        (round 4): bf16 for every f32 policy — measured at Venice-Final:
-        +10%% end-to-end (0.70 -> 0.77 it/s) with the 10-iteration chi2
-        trajectory within 0.2%% of pure-f32 (BENCHMARKS.md r4; the
-        reference exposes the same storage trade, examples/bal.cu:311-314).
-        ``GRAPHITE_TPU_STREAM_DTYPE`` in {bf16, f32} overrides — f32
-        restores bit-faithful transport for ill-conditioned problems.
-        """
-        import os
-
-        override = os.environ.get("GRAPHITE_TPU_STREAM_DTYPE")
-        if override:
-            return {"bf16": jnp.bfloat16, "f32": jnp.float32}[override]
-        if jnp.dtype(self.inv_dtype) == jnp.dtype(jnp.float32):
-            return jnp.bfloat16
-        return self.inv_dtype
-
-    @property
     def acc_dtype(self):
-        """Accumulation dtype for MXU contractions (>= fp32)."""
+        """Accumulation dtype for contractions (>= fp32)."""
         g = jnp.dtype(self.graph_dtype)
         if g == jnp.dtype(jnp.float64):
             return jnp.float64

@@ -1,6 +1,6 @@
 """Block-Jacobi preconditioner.
 
-TPU-native analog of ``BlockJacobiPreconditioner``
+JAX analog of ``BlockJacobiPreconditioner``
 (reference: preconditioner/block_jacobi.hpp:10-187):
 
 - per-vertex diagonal blocks ``B_v = sum_f dL_f J_{f,v}^T P_f J_{f,v}``

@@ -1,6 +1,6 @@
 """Block-Jacobi preconditioner on the Schur system.
 
-TPU-native analog of ``BlockJacobiSchurPreconditioner``
+JAX analog of ``BlockJacobiSchurPreconditioner``
 (reference: preconditioner/block_jacobi_schur.hpp:16-179): gathers the
 diagonal blocks of S (grouped per pose vertex type), inverts them batched,
 applies a batched block matvec in row form. Damping is a no-op because the
@@ -72,35 +72,6 @@ class BlockJacobiSchurPreconditioner:
                 preferred_element_type=problem.precision.acc_dtype,
             )
         return problem.flat_from_rows(z_rows, dtype=gdt)[: ss.dim_p]
-
-
-def dense_preconditioner_matrix(problem, ss, state: BlockJacobiSchurState,
-                                dtype) -> jax.Array:
-    """Dense (dim_p, dim_p) block-diagonal matrix from the inverted S
-    diagonal blocks — feeds the whole-PCG VMEM kernel
-    (ops/pallas/pcg_dense.py), where the preconditioner application is one
-    MXU matmul. Small systems only (dim_p <= ~1024)."""
-    n = ss.dim_p
-    cache = problem._cache
-    if "bjs_dense_idx" not in cache:
-        out = {}
-        pose_ids = np.arange(ss.n_pose_blocks)
-        types = np.asarray(ss.block_type)[pose_ids]
-        for t in np.unique(types):
-            sel = pose_ids[types == t]
-            rows = ss.block_row[sel]
-            sel = sel[np.argsort(rows, kind="stable")]  # inv_blocks order
-            off = ss.pose_offsets[sel]
-            d = int(ss.pose_dims[sel[0]])
-            idx = ((off[:, None, None] + np.arange(d)[None, :, None]) * n
-                   + off[:, None, None] + np.arange(d)[None, None, :])
-            out[str(t)] = idx.reshape(-1).astype(np.int32)
-        cache["bjs_dense_idx"] = out
-    m = jnp.zeros((n * n,), dtype=dtype)
-    for t, blocks in state.inv_blocks.items():
-        idx = problem.const(("bjs_dense_idx", t), cache["bjs_dense_idx"][t])
-        m = m.at[idx].set(blocks.reshape(-1).astype(dtype))
-    return m.reshape(n, n)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Schur complement: explicit S = Hpp - Hpl Hll^{-1} Hpl^T.
 
-TPU-native analog of ``SchurComplement<T,S>`` (reference:
+JAX analog of ``SchurComplement<T,S>`` (reference:
 include/graphite/schur.hpp:87-1115 + ops/schur.hpp:21-282).
 
 Structure discovery (host NumPy, once per topology):
@@ -13,8 +13,8 @@ Structure discovery (host NumPy, once per topology):
 - triple-product work list ``dst -= left * mid * right^T`` grouped by
   (dp_a, dl, dp_b) dims — exactly the reference's ``ProductDim``-grouped
   ``MulOp`` lists (:484-585) — here executed as ONE gather + batched
-  einsum + segment_sum per group (MXU-friendly) instead of per-dim CUDA
-  kernels (ops/schur.hpp:117-188);
+  block product + segment_sum per group instead of per-dim CUDA kernels
+  (ops/schur.hpp:117-188);
 - Hll diagonal inversion grouped by block dim (cuBLAS matinvBatched with
   dim<=32, :1000-1114) becomes batched closed-form/Cholesky SPD inverses
   with no dim limit.
@@ -33,7 +33,6 @@ block matvec for PCG (:307-393), and landmark back-substitution
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Dict, List, Tuple
 
 import jax
@@ -49,47 +48,36 @@ from .ops.blockfmt import (
     flat_block_mm_nt,
     flat_block_mv,
     flat_block_mv_t,
-    flatten_blocks,
-    unflatten_blocks,
 )
-from .ops.chunked import scan_accumulate
-# Shared gather-aware reduction helpers; underscore aliases kept so tests
-# can monkeypatch via this namespace.
+from .ops.chunked import device_bytes_limit, scan_accumulate
+# Shared reduction helpers; underscore aliases kept so tests can
+# monkeypatch via this namespace.
 from .ops.streamreduce import (
-    WIDE_LANES as _sr_WIDE_LANES,
-    get_stream_plan as _get_stream_plan,
+    map_chunk_rows as _map_chunk_rows,
     mapped_rows as _mapped_rows,
     maybe_rows as _maybe_rows,
     reduce_rows as _reduce_rows,
-    reduce_rows_perm as _reduce_rows_perm,
-    stream_consts as _stream_consts,
-    use_pallas as _use_pallas,
-    wide_table as _wide_table,
 )
 
 # One-shot W = Hpl Hll^{-1} expansion-transient budget: (K, dl*dl) f32.
-# Venice-Final (K=5.0M, dl=3) is 180 MB; above this the chunked
-# narrow-gather fallback bounds the transient instead.
 W_EXPAND_BYTES = 1 << 29
 
-# Above this row count, block-batch products run in lax.scan chunks to bound
-# transients. The flat 2-D VPU products (ops/blockfmt.py) have no tile-padded
-# 3-D intermediates, so the bound is just the (K, r*c) product itself
-# (~332 B/row for 9x9 f32) — 2^22 rows ~ 1.4 GB transient.
+# Triple products run as one gather + product + segment_sum while their
+# transient (rows x row bytes) stays within 1/TRANSIENT_SHARE of the
+# device's memory; above it they fold through lax.scan chunks of CHUNK
+# rows. Backends that report no memory limit (the CPU) use the fixed
+# CHUNK_THRESHOLD row bound instead (tests lower it to force the fold).
+TRANSIENT_SHARE = 4
 CHUNK_THRESHOLD = 1 << 22
 CHUNK = 1 << 16
 
 
-def _chunk_threshold(problem) -> int:
-    """Fusion bound, scaled down for huge problems: at Venice-Final scale
-    (dim_h ~ 3M) the fully-jitted LM while_loop runs so close to the HBM
-    limit that the 2^22 fused transients crash the TPU worker — measured
-    empirically; 2^19 (the bound the loop was validated at) leaves
-    headroom. Reads the module global so tests can still force tiny
-    thresholds."""
-    if problem.dim_h > 1_000_000:
-        return min(CHUNK_THRESHOLD, 1 << 19)
-    return CHUNK_THRESHOLD
+def _chunk_threshold(row_bytes: int) -> int:
+    """Largest product batch (rows) that runs without scan chunking."""
+    limit = device_bytes_limit()
+    if limit is None:
+        return CHUNK_THRESHOLD
+    return limit // TRANSIENT_SHARE // max(row_bytes, 1)
 
 
 @dataclasses.dataclass
@@ -364,9 +352,7 @@ def build_schur_structure(problem) -> SchurStructure:
     # index among the group's HPL blocks only. Compose through hpl_h_idx
     # so MIXED groups (dp == dl: the group also holds diagonal / Hpp
     # blocks) read the correct rows — exact identity for BAL-style
-    # pure-Hpl groups, so the hot path is unchanged. This also keeps
-    # prepare_stream_tables' damping-invariance exact: composed indices
-    # point only at pose-landmark rows, which damping never rewrites.
+    # pure-Hpl groups, so the hot path is unchanged.
     for pg in products:
         hidx = hpl_h_idx[pg["right_key"]]
         n_h = hidx.shape[0]
@@ -438,69 +424,46 @@ class SchurValues:
     s_vals: Dict[Tuple[int, int], jax.Array]  # key -> (nS_g, dr*dc) flat
 
 
-@with_matmul_precision
-def prepare_stream_tables(problem, ss: SchurStructure,
-                          hvals: HessianValues):
-    """Damping-independent wide stream tables for the streamed triple
-    products, built once per LINEARIZATION (``solver.prepare``) instead of
-    once per solve: the right-operand stream of every streamed product
-    group is the raw Hpl-bearing H group, whose gathered rows are
-    pose-landmark blocks — ``apply_damping`` only rewrites diagonal
-    blocks, so the zero-padded ``stream_dtype`` copy (~1 GB of cast+pad
-    traffic per Schur rebuild at Venice-Final) is invariant across the
-    per-mu ``schur_values`` calls of one LM iteration sequence. Rows the
-    damping DOES touch (diagonal blocks sharing the group) are never read
-    through the product gather lists. Returns {} when nothing streams
-    (small problems, sharded mode, Pallas off).
+def _product_sum(W, R, left, right, dst, dims, k: int, ns: int, inv_dt):
+    """sum_pairs W[left] R[right]^T into ``ns`` destination blocks
+    (ops/schur.hpp:117-188, the reference's triple-product kernels, whose
+    atomicAdd scatter is what XLA's segment_sum lowers to on the GPU).
 
-    ``GRAPHITE_TPU_NO_STREAM_TABLES=1`` disables the hoist (per-solve
-    rebuild instead): the tables live in the LM while_loop carry for the
-    whole optimization (~the wide-padded Hpl stream copy), so at
-    HBM-limit scale this is the A/B + emergency headroom switch."""
-    if os.environ.get("GRAPHITE_TPU_NO_STREAM_TABLES"):
-        return {}
-    nsh = problem.psum_size if problem.psum_axis is not None else None
-    if nsh is not None and nsh > 1:
-        return {}  # sharded branch gathers per device; no shared table
-    inv_dt = problem.precision.inv_dtype
-    sdt = jnp.dtype(problem.precision.stream_dtype)
-    fused = not os.environ.get("GRAPHITE_TPU_NO_FUSED_STREAM")
-    out = {}
-    for gi, pg in enumerate(ss.products):
-        if pg["dst"].shape[0] <= _chunk_threshold(problem):
-            continue
-        ns = ss.s_sizes[pg["dst_key"]]
-        parts = _plan_stream_parts(problem, ss, gi, pg, ns, inv_dt)
-        if parts is None:
-            continue
-        Rsrc = hvals[pg["right_key"]]
-        rtbl = _plan_rtbl(problem, ss, gi, pg, parts,
-                          Rsrc.shape[0]) if fused else None
-        if rtbl is not None:
-            # dst-major-sorted packed window table (the rtbl kernel's
-            # format) — same damping invariance as the wide table
-            out[gi] = _rtbl_table(problem, gi, rtbl, Rsrc, sdt)
-        else:
-            out[gi] = _wide_table(Rsrc.astype(sdt))
-    return out
+    ``dst`` is non-decreasing (the freeze-time plans sort it); ids equal
+    to ``ns`` land in a trash row. Above the transient budget the pairs
+    fold through scan chunks, whose padding rows also target the trash
+    row. Returns (ns, dpa*dpb).
+    """
+    dpa, dl, dpb = dims
+
+    def body(carry, arrays):
+        li, ri, di = arrays
+        prod = flat_block_mm_nt(W[li], R[ri].astype(inv_dt), dpa, dl, dpb,
+                                acc_dtype=inv_dt)
+        return carry + jax.ops.segment_sum(
+            prod, di, num_segments=ns + 1, indices_are_sorted=True)
+
+    acc0 = jnp.zeros((ns + 1, dpa * dpb), dtype=inv_dt)
+    row_bytes = (dpa * dpb + (dpa + dpb) * dl) * jnp.dtype(inv_dt).itemsize
+    if k <= _chunk_threshold(row_bytes):
+        return body(acc0, (left, right, dst))[:ns]
+    return scan_accumulate(body, (left, right, dst), k, CHUNK, acc0,
+                           fills=[0, 0, ns])[:ns]
 
 
 @with_matmul_precision
-def schur_values(problem, ss: SchurStructure, hvals: HessianValues,
-                 stream_tables=None) -> SchurValues:
+def schur_values(problem, ss: SchurStructure,
+                 hvals: HessianValues) -> SchurValues:
     """S = Hpp - Hpl Hll^{-1} Hpl^T from damped H values
     (schur.hpp:227-235: Hpp copy -> block inversion -> triple products).
 
     All block batches are stored flat 2-D (ops/blockfmt.py); 3-D views exist
-    only transiently inside fused einsums. ``stream_tables`` (optional,
-    from ``prepare_stream_tables``) supplies the damping-invariant wide
-    right-operand stream copies so they are not rebuilt per solve.
+    only transiently inside fused einsums.
     """
     inv_dt = problem.precision.inv_dtype
 
     # 1. Hll^{-1} per dim group (schur.hpp:1067-1114) — flat 2-D closed
-    # form (no tile-padded (N, d, d) transient) with identity gathers
-    # eliminated.
+    # form with identity gathers eliminated.
     hll_inv = {}
     for d in ss.lm_dims:
         hll_flat = _maybe_rows(problem, ("lm_h_idx", d), hvals[(d, d)],
@@ -519,22 +482,6 @@ def schur_values(problem, ss: SchurStructure, hvals: HessianValues,
             hvals[hkey][problem.const(("hpp_h", hi), h_idx)].astype(inv_dt)
         )
 
-    # Probe hook (tools/schur_stage_probe.py): stop after the Hpp copy +
-    # Hll^{-1} (+ optionally cap the streamed parts below) to attribute
-    # the stage's on-chip time. Wrong results by design — timing only.
-    import os as _os
-    # values: "1" = hll_inv + Hpp copy + W; "hll" = hll_inv + Hpp copy only
-    _front_only = _os.environ.get("GRAPHITE_TPU_SCHUR_FRONT_ONLY")
-    _max_parts = int(_os.environ.get("GRAPHITE_TPU_SCHUR_MAX_PARTS", "0")
-                     or 0)
-
-    if _front_only == "hll":
-        # timing hook: hll_inv + Hpp copy only (no W, no products)
-        key0 = list(s_vals)[0]
-        for d in hll_inv:
-            s_vals[key0] = s_vals[key0] + hll_inv[d][0, 0] * 1e-30
-        return SchurValues(hll_inv=hll_inv, s_vals=s_vals)
-
     # 3. Triple products (schur.hpp:649-734). First precompute
     # W = Hpl * Hll^{-1} once per Hpl BLOCK (one small gather), so each
     # product is W_left * Hpl_right^T — one fewer big gather per product
@@ -551,12 +498,10 @@ def schur_values(problem, ss: SchurStructure, hvals: HessianValues,
         gi_np = ss.lm_group_index[ss.hpl_lm[key]].astype(np.int32)
 
         # CSC landmark-major order makes gi NON-DECREASING (every obs of a
-        # landmark is contiguous), so the 5M-row Hll^{-1} lookup can be a
-        # repeat-EXPANSION instead of a gather: jnp.repeat with host-side
-        # counts runs at 33 ms vs 55 (narrow gather) / 144 (wide gather,
-        # scan-chunked — the r3 regression) at Venice-Final shape
-        # (/tmp/w_stage_probe.py, on-chip). One-shot: the (K, dl*dl)
-        # expansion transient is bounded by W_EXPAND_BYTES.
+        # landmark is contiguous), so the Hll^{-1} lookup can be a
+        # repeat-EXPANSION with host-side counts instead of a gather.
+        # One-shot: the (K, dl*dl) expansion transient is bounded by
+        # W_EXPAND_BYTES.
         wcache = problem._cache.setdefault("hpl_w_expand", {})
         if key not in wcache:
             is_sorted = bool(gi_np.size == 0
@@ -572,9 +517,8 @@ def schur_values(problem, ss: SchurStructure, hvals: HessianValues,
         if is_sorted and K * dl * dl * 4 <= W_EXPAND_BYTES:
             # barrier: hll_inv is a computed expression here — without the
             # fence XLA fuses the 3x3 inverse INTO the repeat's gather and
-            # recomputes it per OBSERVATION (5x the arithmetic + scattered
-            # Hll reads); materializing the (n_lm, 9) table first keeps it
-            # per landmark
+            # recomputes it per OBSERVATION; materializing the (n_lm, 9)
+            # table first keeps it per landmark
             inv_exp = jnp.repeat(
                 jax.lax.optimization_barrier(hll_inv[dl]),
                 problem.const(("hpl_w_counts", key), counts_np),
@@ -586,10 +530,6 @@ def schur_values(problem, ss: SchurStructure, hvals: HessianValues,
             lm_gidx = problem.const(("hpl_lm_gidx", key), gi_np)
 
             def w_body(chunk_arrays, dp=dp, dl=dl, inv=hll_inv[dl]):
-                # fused 2-D VPU block product: no 3-D tile-padded
-                # transient and exact fp32 multiplies (ops/blockfmt.py);
-                # the Hll^{-1} row lookup is a narrow gather from the
-                # small source table inside the chunk
                 hf, gi = chunk_arrays
                 return flat_block_mm_nn(hf.astype(inv_dt), inv[gi],
                                         dp, dl, dl, acc_dtype=inv_dt)
@@ -598,103 +538,35 @@ def schur_values(problem, ss: SchurStructure, hvals: HessianValues,
                 w_body, (hpl_flat, lm_gidx), K,
                 (dp * dl * 2 + dl * dl) * 4)
 
-    if _front_only:
-        # timing hook: hll_inv + Hpp copy + W only (S values incomplete;
-        # the 1e-30 taps keep every W batch live under DCE)
-        key0 = list(s_vals)[0]
-        for wkey in hpl_w:
-            s_vals[key0] = s_vals[key0] + hpl_w[wkey][0, 0] * 1e-30
-        return SchurValues(hll_inv=hll_inv, s_vals=s_vals)
-
     # Inside a factor-sharded shard_map with a known mesh size, the triple
     # products — the dominant stage at scale (schur.hpp:484-585: the work
     # lists are already grouped; we shard the groups) — are partitioned
     # across devices BY DESTINATION RANGE: the pair list is dst-sorted, so
     # segment-aligned contiguous slices give each device ~K/n products
     # whose outputs land in a disjoint S-block range. Each device reduces
-    # only its own range (with the streaming Pallas kernel when feasible —
-    # SPMD-common geometry, per-device flush schedules), and ONE
-    # all-gather of the disjoint slices replaces the former full
-    # (ns+1, d*d)-accumulator psum per group — at Venice scale that psum
-    # re-introduced exactly the HBM/ICI traffic the streaming kernel
-    # exists to kill. Everything upstream (psum'd H values, Hll^{-1}, W)
-    # is replicated and cheap by comparison.
+    # only its own range, and ONE all-gather of the disjoint slices
+    # replaces a full (ns, d*d)-accumulator psum per group. Everything
+    # upstream (psum'd H values, Hll^{-1}, W) is replicated and cheap by
+    # comparison.
     nsh = problem.psum_size if problem.psum_axis is not None else None
     if nsh is not None and nsh > 1:
+        i_dev = jax.lax.axis_index(problem.psum_axis)
         for gi, pg in enumerate(ss.products):
-            dpa, dl, dpb = pg["dims"]
             key = pg["dst_key"]
-            ns = ss.s_sizes[key]
             sp = _plan_sharded_partition(problem, gi, pg, nsh)
-            geom = sp["geom"]
-            k_pad = sp["k_pad"]
-            ns_max = sp["ns_max"]
-            i_dev = jax.lax.axis_index(problem.psum_axis)
 
-            def dev_row(name, arr, i_dev=i_dev, gi=gi):
-                c = problem.const(("shstream", name, gi, nsh), arr)
+            def dev_row(name, arr, gi=gi):
+                c = problem.const(("shprod", name, gi, nsh), arr)
                 return jax.lax.dynamic_index_in_dim(
                     c, i_dev, 0, keepdims=False)
 
-            li = dev_row("l", sp["left"])
-            ri = dev_row("r", sp["right"])
-            segd = dev_row("seg", sp["seg"])  # (k_pad, 1)
-            Wsrc = hpl_w[pg["left_key"]]
-            Rsrc = hvals[pg["right_key"]]
-
-            use_kernel = geom is not None and _use_pallas(
-                problem, inv_dt, sharded_ok=True)
-            if use_kernel:
-                from .ops.pallas.segsum_stream import (
-                    streaming_segment_product_sum,
-                )
-
-                # per-device stream copies match the single-chip path:
-                # wide (fast-gather) tables in ``stream_dtype`` (bf16
-                # under low-precision policies — the kernel loads -> f32
-                # and accumulates in f32), so the sharded configuration
-                # exercises the production transport
-                sdt = jnp.dtype(problem.precision.stream_dtype)
-                Wg_sh = _wide_table(Wsrc.astype(sdt))
-                Rg_sh = _wide_table(Rsrc.astype(sdt))
-                plan = dict(geom, num_segments=ns_max)
-                local = streaming_segment_product_sum(
-                    Wg_sh[li], Rg_sh[ri], plan, dpa, dl, dpb,
-                    out_dtype=inv_dt,
-                    seg_pad=segd,
-                    starts=dev_row("starts", sp["starts"]),
-                    nflush=dev_row("nflush", sp["nflush"]),
-                    bases=dev_row("bases", sp["bases"]),
-                )
-            else:
-                # segd is (ceil8(n_chunks), chunk) kernel-geometry layout
-                # (or (k_pad, 1) when no common geometry exists) —
-                # row-major flatten + k_pad slice recovers the id vector
-                # either way
-                di = segd.reshape(-1)[:k_pad].astype(jnp.int32)
-
-                def part_body(carry, chunk_arrays, dpa=dpa, dl=dl, dpb=dpb,
-                              Wsrc=Wsrc, Rsrc=Rsrc, ns_max=ns_max):
-                    lc, rc, dc = chunk_arrays
-                    prod = flat_block_mm_nt(
-                        Wsrc[lc], Rsrc[rc].astype(inv_dt), dpa, dl, dpb,
-                        acc_dtype=inv_dt,
-                    )
-                    return carry + jax.ops.segment_sum(
-                        prod, dc, num_segments=ns_max + 1)
-
-                acc0 = jnp.zeros((ns_max + 1, dpa * dpb), dtype=inv_dt)
-                if k_pad <= _chunk_threshold(problem):
-                    local = part_body(acc0, (li, ri, di))[:ns_max]
-                else:
-                    local = scan_accumulate(
-                        part_body, (li, ri, di), k_pad, CHUNK, acc0,
-                        fills=[0, 0, ns_max],
-                    )[:ns_max]
-
+            local = _product_sum(
+                hpl_w[pg["left_key"]], hvals[pg["right_key"]],
+                dev_row("l", sp["left"]), dev_row("r", sp["right"]),
+                dev_row("seg", sp["seg"]), pg["dims"], sp["k_pad"],
+                sp["ns_max"], inv_dt)
             # disjoint-slice combine: all devices receive every device's
-            # ns_max-row slice once (half the traffic of a ring psum over
-            # the full group) and place it at its static offset
+            # ns_max-row slice once and place it at its static offset
             gathered = jax.lax.all_gather(local, problem.psum_axis)
             for d in range(nsh):
                 ns_d = sp["ns_list"][d]
@@ -705,174 +577,28 @@ def schur_values(problem, ss: SchurStructure, hvals: HessianValues,
         return SchurValues(hll_inv=hll_inv, s_vals=s_vals)
 
     for gi, pg in enumerate(ss.products):
-        dpa, dl, dpb = pg["dims"]
         key = pg["dst_key"]
-        K = pg["dst"].shape[0]
-        Wsrc = hpl_w[pg["left_key"]]
-        Rsrc = hvals[pg["right_key"]]
-
-        if K <= _chunk_threshold(problem):
-            left = problem.const(("prod_l", gi), pg["left"])
-            right = problem.const(("prod_r", gi), pg["right"])
-            # dst -= W R^T (ops/schur.hpp:117-188), as a fused flat 2-D VPU
-            # product: a batched einsum's (K, dpa, dpb) output is tile-padded
-            # ~16x in HBM and cannot fuse into the Pallas scatter call.
-            prod_flat = flat_block_mm_nt(
-                Wsrc[left], Rsrc[right].astype(inv_dt), dpa, dl, dpb,
-                acc_dtype=inv_dt,
-            )
-            s_vals[key] = s_vals[key] - _product_scatter(
-                problem, ss, gi, pg, prod_flat, inv_dt
-            )
-        else:
-            ns = ss.s_sizes[key]
-
-            # HBM-streamed Pallas scatter: compute the flat products in
-            # bounded scan chunks into an HBM buffer, then one streaming
-            # windowed-one-hot pass reduces it — each S row is written to
-            # HBM exactly once. This replaces folding a full
-            # (ns, dpa*dpb) accumulator through every scan step
-            # (~ns * K/CHUNK rows of read+write traffic: ~265 GB per
-            # Schur rebuild at Venice-Final scale). The work is split
-            # into dst-contiguous PARTS so the product buffer stays
-            # bounded (~1.4 GB) — 17M x 81 floats at once would not fit
-            # HBM next to the Hessian values.
-            parts = _plan_stream_parts(problem, ss, gi, pg, ns, inv_dt)
-            if parts is not None:
-                import os as _os
-
-                from .ops.pallas.segsum_stream import (
-                    streaming_segment_product_sum,
-                    streaming_segment_product_sum_rtbl,
-                    streaming_segment_sum,
-                )
-
-                # In-kernel product fusion (streaming_segment_product_sum:
-                # wide XLA gathers feed the kernel, which does the flat
-                # block product AND the windowed-one-hot reduction in one
-                # pass — the (k_pad, dpa*dpb) product buffer never touches
-                # HBM). In situ at Venice-Final it wins: 547 ms full stage
-                # vs 626 for the two-pass gather->product->streaming-segsum
-                # handoff (tools/schur_stage_probe.py, r3). Kill switch
-                # falls back to the two-pass handoff.
-                fused = not _os.environ.get("GRAPHITE_TPU_NO_FUSED_STREAM")
-
-                # XLA's row gather flips to a fast path at >= 64 row
-                # LANES (any dtype): 90-113 GB/s f32 vs 11 GB/s below
-                # (tools/gather_width_probe.py, tools/r4_bf16_probe.py).
-                # The 17M-pair W / Hpl gathers dominate this stage, so
-                # factor rows narrower than 64 lanes are zero-padded once;
-                # the product slices the live lanes back out (XLA fuses
-                # the slice), and the kernel's expansion one-hots ignore
-                # dead lanes exactly. The streams are stored in
-                # ``stream_dtype`` (bf16 under low-precision policies —
-                # halves the dominant gather traffic; the kernel loads ->
-                # f32 and accumulates in f32 either way).
-                sdt = jnp.dtype(problem.precision.stream_dtype)
-                Wg_src = _wide_table(Wsrc.astype(sdt))
-                rtbl = _plan_rtbl(problem, ss, gi, pg, parts,
-                                  Rsrc.shape[0]) if fused else None
-                Rg_src = (stream_tables or {}).get(gi)
-                if Rg_src is None:
-                    Rg_src = (_rtbl_table(problem, gi, rtbl, Rsrc, sdt)
-                              if rtbl is not None
-                              else _wide_table(Rsrc.astype(sdt)))
-
-                for p, part in enumerate(parts):
-                    if _max_parts and p >= _max_parts:
-                        break  # timing hook: cap streamed parts
-                    plan = part["plan"]
-                    li = problem.const(("stream_l", gi, p), part["left"])
-                    ri = (None if rtbl is not None else problem.const(
-                        ("stream_r", gi, p), part["right"]))
-                    if p > 0:
-                        # serialize parts: without a data dependency XLA
-                        # may schedule every part's per-part transient
-                        # buffers live at once (HBM OOM at Venice-Final
-                        # scale). x*0.0 is not folded for floats (NaN
-                        # semantics), so this is a real edge.
-                        dep = (s_vals[key][0, 0] * 0.0).astype(li.dtype)
-                        li = li + dep
-                    stream_consts = dict(
-                        seg_pad=problem.const(("stream_seg", gi, p),
-                                              plan["seg_pad_2d"]),
-                        starts=problem.const(("stream_starts", gi, p),
-                                             plan["starts"]),
-                        nflush=problem.const(("stream_nflush", gi, p),
-                                             plan["nflush"]),
-                        bases=problem.const(("stream_bases", gi, p),
-                                            plan["bases"]),
-                    )
-                    if rtbl is not None:
-                        pp = rtbl["parts"][p]
-                        acc = streaming_segment_product_sum_rtbl(
-                            Wg_src[li], Rg_src, plan, dpa, dl, dpb,
-                            rid=problem.const(("rtbl_rid", gi, p),
-                                              pp["rid_2d"]),
-                            wblk=problem.const(("rtbl_wblk", gi, p),
-                                               pp["wblk"]),
-                            wbp=rtbl["wbp"], out_dtype=inv_dt,
-                            **stream_consts,
-                        )
-                    elif fused:
-                        acc = streaming_segment_product_sum(
-                            Wg_src[li], Rg_src[ri], plan,
-                            dpa, dl, dpb, out_dtype=inv_dt,
-                            **stream_consts,
-                        )
-                    else:
-                        # default: one wide gather per factor (fast-path
-                        # row bytes), XLA-fused slice + flat VPU product,
-                        # then the streaming reduction
-                        prod_flat = flat_block_mm_nt(
-                            Wg_src[li][:, :dpa * dl],
-                            Rg_src[ri][:, :dpb * dl],
-                            dpa, dl, dpb, acc_dtype=inv_dt,
-                        )
-                        acc = streaming_segment_sum(
-                            prod_flat, plan, **stream_consts,
-                        )
-                    s0, ns_p = part["seg0"], plan["num_segments"]
-                    s_vals[key] = (
-                        s_vals[key].at[s0:s0 + ns_p].add(-acc)
-                    )
-                continue
-
-            def prod_body(carry, chunk_arrays, dpa=dpa, dl=dl, dpb=dpb,
-                          ns=ns, Wsrc=Wsrc, Rsrc=Rsrc):
-                li, ri, di = chunk_arrays
-                prod_flat = flat_block_mm_nt(
-                    Wsrc[li], Rsrc[ri].astype(inv_dt), dpa, dl, dpb,
-                    acc_dtype=inv_dt,
-                )
-                return carry + jax.ops.segment_sum(
-                    prod_flat, di, num_segments=ns + 1
-                )
-
-            acc0 = jnp.zeros((ns + 1, dpa * dpb), dtype=inv_dt)
-            acc = scan_accumulate(
-                prod_body,
-                (problem.const(("prod_l", gi), pg["left"]),
-                 problem.const(("prod_r", gi), pg["right"]),
-                 problem.const(("prod_dst", gi), pg["dst"])),
-                K, CHUNK, acc0,
-                fills=[0, 0, ns],  # padding rows target the trash segment
-            )
-            s_vals[key] = s_vals[key] - acc[:ns]
+        # dst -= W R^T (ops/schur.hpp:117-188) as a fused flat 2-D block
+        # product feeding one sorted segment_sum
+        s_vals[key] = s_vals[key] - _product_sum(
+            hpl_w[pg["left_key"]], hvals[pg["right_key"]],
+            problem.const(("prod_l", gi), pg["left"]),
+            problem.const(("prod_r", gi), pg["right"]),
+            problem.const(("prod_dst", gi), pg["dst"]),
+            pg["dims"], pg["dst"].shape[0], ss.s_sizes[key], inv_dt)
     return SchurValues(hll_inv=hll_inv, s_vals=s_vals)
 
 
 def _plan_sharded_partition(problem, gi, pg, nsh):
     """Freeze-time plan (cached) for the dst-partitioned sharded product
     stage: segment-aligned contiguous per-device pair ranges (≈ K/nsh
-    rows each), per-device gather/segment arrays padded to a common
-    k_pad, and — when feasible — a common streaming-kernel geometry with
-    per-device flush schedules (SPMD: statics equal across devices)."""
-    cache = problem._cache.setdefault("sharded_stream_plans", {})
+    rows each), with per-device gather and segment arrays padded to a
+    common k_pad. Pad rows gather row 0 and target the trash segment
+    ns_max, so every device's segment ids stay non-decreasing."""
+    cache = problem._cache.setdefault("sharded_product_plans", {})
     ck = (gi, nsh)
     if ck in cache:
         return cache[ck]
-    from .ops.pallas.segsum_stream import plan_streaming_segsum_common
 
     dst = pg["dst"]
     K = dst.shape[0]
@@ -899,23 +625,8 @@ def _plan_sharded_partition(problem, gi, pg, nsh):
         rights.append(pg["right"][lo:hi])
         rows.append(hi - lo)
 
-    plans, geom = plan_streaming_segsum_common(seg_slices, ns_list,
-                                               chunk=1024)
-    if plans is not None:
-        k_pad = geom["k_pad"]
-        seg = np.stack([p["seg_pad_2d"] for p in plans])
-        starts = np.stack([p["starts"] for p in plans])
-        nflush = np.stack([p["nflush"] for p in plans])
-        bases = np.stack([p["bases"] for p in plans])
-    else:
-        k_pad = max(max(rows), 1)
-        k_pad = ((k_pad + 2047) // 2048) * 2048
-        seg = np.stack([
-            np.concatenate([s, np.full(k_pad - s.shape[0], n,
-                                       dtype=np.int64)])
-            .astype(np.int32).reshape(k_pad, 1)
-            for s, n in zip(seg_slices, ns_list)])
-        starts = nflush = bases = None
+    k_pad = max(max(rows), 1)
+    ns_max = max(ns_list)
 
     def stackpad(arrs, fill):
         out = np.full((nsh, k_pad), fill, dtype=np.int32)
@@ -924,197 +635,11 @@ def _plan_sharded_partition(problem, gi, pg, nsh):
         return out
 
     cache[ck] = dict(
-        geom=geom, k_pad=k_pad, ns_max=max(ns_list), ns_list=ns_list,
-        seg0=seg0s, rows=rows, left=stackpad(lefts, 0),
-        right=stackpad(rights, 0), seg=seg, starts=starts, nflush=nflush,
-        bases=bases,
+        k_pad=k_pad, ns_max=ns_max, ns_list=ns_list, seg0=seg0s, rows=rows,
+        left=stackpad(lefts, 0), right=stackpad(rights, 0),
+        seg=stackpad(seg_slices, ns_max),
     )
     return cache[ck]
-
-
-# rows per streaming-scatter part: bounds the (rows, dpa*dpb) product
-# transient to ~0.7 GB f32 at 9x9 blocks
-STREAM_PART_ROWS = 1 << 21
-
-
-
-def _plan_stream_parts(problem, ss, gi, pg, ns, inv_dt):
-    """Freeze-time plan (cached) for the HBM-streamed product scatter:
-    dst-contiguous parts, each with its own streaming-segsum plan and
-    k_pad-padded gather indices (pad rows -> trash segment). Returns None
-    when the kernel is unavailable/infeasible (caller uses the fold
-    path)."""
-    if not _use_pallas(problem, inv_dt):
-        return None
-    from .ops.pallas.segsum_stream import plan_streaming_segsum
-
-    cache = problem._cache.setdefault("segsum_stream_plans", {})
-    if gi in cache:
-        return cache[gi]
-    dst = pg["dst"]
-    K = dst.shape[0]
-    n_parts = max(1, -(-K // STREAM_PART_ROWS))
-    bounds = [0]
-    for p in range(1, n_parts):
-        idx = p * (K // n_parts)
-        # align down to a segment boundary so parts never split a segment
-        idx = int(np.searchsorted(dst, dst[idx], side="left"))
-        if idx > bounds[-1]:
-            bounds.append(idx)
-    bounds.append(K)
-    parts = []
-    feasible = True
-    for lo, hi in zip(bounds[:-1], bounds[1:]):
-        if hi - lo > 2 * STREAM_PART_ROWS:  # one segment dwarfs the budget
-            feasible = False
-            break
-        seg0 = int(dst[lo])
-        seg_rel = (dst[lo:hi].astype(np.int64) - seg0).astype(np.int32)
-        ns_p = int(dst[hi - 1]) - seg0 + 1
-        # chunk 1024: the fused product kernel's (chunk, d)-sized VMEM
-        # temporaries at 2048 blow the 16 MB scoped-VMEM limit at
-        # Venice-Final scale (measured: 18.8 MB)
-        plan = plan_streaming_segsum(seg_rel, ns_p, chunk=1024)
-        if not plan["feasible"]:
-            feasible = False
-            break
-        pad = plan["k_pad"] - (hi - lo)
-        left = pg["left"][lo:hi]
-        right = pg["right"][lo:hi]
-        if pad:
-            left = np.concatenate([left, np.zeros(pad, left.dtype)])
-            right = np.concatenate([right, np.zeros(pad, right.dtype)])
-        parts.append(dict(plan=plan, seg0=seg0, left=left, right=right))
-    cache[gi] = parts if feasible else None
-    return cache[gi]
-
-
-
-
-def _plan_rtbl(problem, ss, gi, pg, parts, n_hrows: int):
-    """Host plan (cached) for serving the streamed triple products' RIGHT
-    operand from a rolling window of a dst-major-sorted packed row table
-    (ops/pallas/segsum_stream.py:_kernel_prod_rtbl) instead of a ~K-row
-    XLA gather.
-
-    The pair list is dst-sorted by S code (col_pose * n_pose + row), so
-    the right operand's pose advances monotonically; sorting the right H
-    rows by pose makes each chunk's source ids window-local. Per part and
-    chunk the plan records the 2-block window index; infeasible coverage
-    (a pose with more Hpl rows than the largest window) returns None and
-    the caller keeps the gather path.
-
-    Reference parity: the gather side of the triple-product kernels
-    (ops/schur.hpp:117-188) — the reference reads operands through
-    random-access loads; here the dst-major sort turns them sequential.
-    """
-    if os.environ.get("GRAPHITE_TPU_NO_RTBL"):
-        return None
-    cache = problem._cache.setdefault("rtbl_plans", {})
-    if gi in cache:
-        return cache[gi]
-    from .ops.pallas.segmv import pack_chunk_ids, slot_geom
-
-    dpa, dl, dpb = pg["dims"]
-    dw, nslot = slot_geom(dpb * dl)
-    rkey = pg["right_key"]
-    h_idx = ss.hpl_h_idx[rkey]
-    # pose per H-group row (rows that are not Hpl blocks — mixed groups —
-    # sort to the end and are never referenced by pg["right"])
-    pose_of = np.full(n_hrows, np.iinfo(np.int64).max, dtype=np.int64)
-    pose_of[h_idx] = ss.hpl_pose[rkey]
-    perm = np.argsort(pose_of, kind="stable").astype(np.int32)
-    pos = np.empty(n_hrows, dtype=np.int64)
-    pos[perm] = np.arange(n_hrows)
-
-    # smallest window (2 blocks of wbp packed rows) covering every
-    # chunk's live id span, grown across ALL parts (shared kernel
-    # geometry), then per-part per-chunk window block indices
-    spans = []
-    wbp = 512
-    for part in parts:
-        plan = part["plan"]
-        chunk, k_pad, n_live = plan["chunk"], plan["k_pad"], plan["k"]
-        rid = np.zeros(k_pad, dtype=np.int64)
-        rid[:n_live] = pos[part["right"][:n_live]]
-        live = np.zeros(k_pad, dtype=bool)
-        live[:n_live] = True
-        n_chunks = plan["n_chunks"]
-        rid_c = rid.reshape(n_chunks, chunk)
-        live_c = live.reshape(n_chunks, chunk)
-        any_l = live_c.any(1)
-        lo = np.where(any_l,
-                      np.where(live_c, rid_c, np.int64(2**62)).min(1), 0)
-        hi = np.where(any_l,
-                      np.where(live_c, rid_c, np.int64(-1)).max(1), 0)
-        spans.append((rid, lo, hi))
-        while wbp <= 4096 and np.any(hi >= (lo // (wbp * nslot) + 2)
-                                     * (wbp * nslot)):
-            wbp *= 2
-        if wbp > 4096:
-            cache[gi] = None
-            return None
-
-    lg = wbp * nslot
-    n_blocks = -(-n_hrows // lg) + 1
-    plan_parts = []
-    for (rid, lo, hi), part in zip(spans, parts):
-        wblk = (lo // lg).astype(np.int32)
-        assert np.all(hi < (wblk.astype(np.int64) + 2) * lg)
-        n_blocks = max(n_blocks, int(wblk.max(initial=0)) + 2)
-        plan = part["plan"]
-        plan_parts.append(dict(
-            wblk=wblk,
-            rid_2d=pack_chunk_ids(rid.astype(np.int32), plan["k_pad"],
-                                  plan["chunk"], 0),
-        ))
-
-    cache[gi] = dict(perm=perm, wbp=wbp, dw=dw, nslot=nslot,
-                     n_blocks=n_blocks, parts=plan_parts)
-    return cache[gi]
-
-
-def _rtbl_table(problem, gi, rtbl, Rsrc, sdt):
-    """Build the dst-major-sorted, zero-padded, slot-PACKED right row
-    table the rtbl kernel windows over: (n_blocks * wbp, 128)."""
-    from .ops.pallas.segmv import pack_rows
-
-    dw, nslot = rtbl["dw"], rtbl["nslot"]
-    n_rows = rtbl["n_blocks"] * rtbl["wbp"] * nslot
-    t = Rsrc.astype(sdt)[problem.const(("rtbl_perm", gi), rtbl["perm"])]
-    d = t.shape[1]
-    t = jnp.pad(t, ((0, n_rows - t.shape[0]), (0, dw - d)))
-    return pack_rows(t, nslot)
-
-
-def _product_scatter(problem, ss, gi, pg, prod_flat, inv_dt):
-    """Destination scatter of one product group: Pallas windowed-one-hot
-    MXU kernel on TPU/f32 (dst is freeze-sorted), XLA segment_sum
-    otherwise."""
-    key = pg["dst_key"]
-    # the windowed-one-hot kernel keeps the whole output resident in VMEM;
-    # large S-block counts must take the XLA path
-    out_bytes = ss.s_sizes[key] * key[0] * key[1] * 4
-    if _use_pallas(problem, inv_dt) and out_bytes <= (8 << 20):
-        from .ops.pallas.segsum import plan_sorted_segsum, sorted_segment_sum
-
-        plans = problem._cache.setdefault("segsum_plans", {})
-        if gi not in plans:
-            plans[gi] = plan_sorted_segsum(
-                pg["dst"], ss.s_sizes[key], chunk=2048
-            )
-        plan = plans[gi]
-        return sorted_segment_sum(
-            prod_flat, plan,
-            seg_pad=problem.const(("segsum_seg", gi), plan["seg_pad_2d"]),
-            starts=problem.const(("segsum_starts", gi), plan["starts"]),
-        )
-    return jax.ops.segment_sum(
-        prod_flat, problem.const(("prod_dst", gi), pg["dst"]),
-        num_segments=ss.s_sizes[key],
-    )
-
-
 
 
 def _partition_blocks_by_type(ss: SchurStructure, block_ids: np.ndarray):
@@ -1136,325 +661,15 @@ def _partition_blocks_by_type(ss: SchurStructure, block_ids: np.ndarray):
 def _smv_chunk_rows(row_bytes: int) -> int:
     """Scan-chunk rows for the folded S matvec (same byte budget as
     streamreduce.map_chunk_rows; separate symbol so tests can monkeypatch
-    it to force the fold at toy scale)."""
-    from .ops.streamreduce import map_chunk_rows
-
-    return map_chunk_rows(row_bytes)
-
-
-def _plan_smv_sym(problem, ck, sub, rrow_l, crow_l, off,
-                  nseg_r, nseg_c, dr, dc, dtype):
-    """Round-4 SYMMETRIC single-pass S matvec site, or None.
-
-    One natural-order read of the stored S blocks per matvec computes
-    BOTH directions (y_r += S x_c for every block; y_c += S^T x_r off-
-    diagonal) into VMEM-resident pose accumulator tables
-    (ops/pallas/segmv.matvec_sym_stream). Versus the tbl sites this
-    deletes the per-solve CSR-permuted S copy (prepare_matvec builds
-    only the zero-padded natural stream) and halves per-matvec S
-    traffic; no destination ordering is needed at all, so there is no
-    flush schedule. Requires both pose row tables within the in-kernel
-    gather limit. Reference: schur.hpp:307-393 (the symmetric S block
-    matvec whose atomicAdd covers both triangles from one block read).
-    """
-    if (os.environ.get("GRAPHITE_TPU_NO_SMV_SYM")
-            or os.environ.get("GRAPHITE_TPU_NO_SMV_TBL")
-            or os.environ.get("GRAPHITE_TPU_NO_SMV_STREAM")):
-        return None
-    from .ops.pallas.segmv import (
-        TABLE_ROWS_LIMIT,
-        pack_chunk_ids,
-        plan_block_matvec,
-        tpad,
-    )
-
-    cache = problem._cache.setdefault("smv_sym_sites", {})
-    if ck in cache:
-        return cache[ck]
-    site = None
-    K = sub.shape[0]
-    row_bytes = (dr * dc + dr + dc + 3) * 4
-    if (K > _smv_chunk_rows(row_bytes)
-            and tpad(nseg_r + 1) <= TABLE_ROWS_LIMIT
-            and tpad(nseg_c + 1) <= TABLE_ROWS_LIMIT):
-        plan = plan_block_matvec(K, chunk=2048)
-        kp, chunk = plan["k_pad"], plan["chunk"]
-        site = dict(
-            plan=plan,
-            # col ids double as the forward x index (fill = zero row)
-            # and the transposed destination (fill = trash row): both
-            # conventions use id nseg_c
-            cid=pack_chunk_ids(crow_l, kp, chunk, fill=nseg_c),
-            rid=pack_chunk_ids(rrow_l, kp, chunk, fill=nseg_r),
-            rxi=pack_chunk_ids(np.where(off, rrow_l, nseg_r), kp,
-                               chunk, fill=nseg_r),
-        )
-    cache[ck] = site
-    return site
-
-
-def _plan_smv_tbl(problem, ck, sub, rrow_l, crow_l, off,
-                  nseg_r, nseg_c, dr, dc, dtype):
-    """Round-4 streaming-matvec site with IN-KERNEL x gathers, or None.
-
-    The r3 design (`_plan_smv_stream`) paid two XLA x-row gathers per
-    matvec plus a lane-transposed S copy per solve; the round-4 probe
-    showed row gathers cost ~11.4 ns/row regardless of width, so the x
-    lookups move inside the kernel as one-hot MXU products against the
-    VMEM-resident x row table (ops/pallas/segmv.onehot_gather):
-
-    - forward (y_r += S x_c): CSR-permuted left copy (one row gather per
-      SOLVE), x indexed by column row — packed idx, sorted row dst;
-    - transposed (y_c += S^T x_r): the NATURAL CSC order (column dst
-      already sorted) with the transposed expansion one-hots — no
-      lane-transposed copy at all; diagonal blocks are masked by
-      pointing their x index at the table's zero row.
-
-    Feasible only when the pose row tables are small enough for the
-    one-hot products to beat the row gather (segmv.TABLE_ROWS_LIMIT).
-    """
-    if (os.environ.get("GRAPHITE_TPU_NO_SMV_TBL")
-            or os.environ.get("GRAPHITE_TPU_NO_SMV_STREAM")):
-        return None
-    from .ops.pallas.segmv import (
-        TABLE_ROWS_LIMIT,
-        pack_chunk_ids,
-        tpad,
-    )
-
-    cache = problem._cache.setdefault("smv_tbl_sites", {})
-    if ck in cache:
-        return cache[ck]
-    site = None
-    K = sub.shape[0]
-    row_bytes = (dr * dc + dr + dc + 3) * 4
-    if (K > _smv_chunk_rows(row_bytes)
-            and tpad(nseg_r + 1) <= TABLE_ROWS_LIMIT
-            and tpad(nseg_c + 1) <= TABLE_ROWS_LIMIT):
-        perm = hostops.stable_argsort(
-            rrow_l.astype(np.int64), nseg_r + 1).astype(np.int64)
-        plan_f = _get_stream_plan(problem, ck + ("tf",),
-                                  rrow_l[perm].astype(np.int32),
-                                  nseg_r, dtype)
-        plan_t = _get_stream_plan(problem, ck + ("tt",),
-                                  crow_l.astype(np.int32), nseg_c, dtype)
-        if plan_f is not None and plan_t is not None:
-            kf, kt = plan_f["k_pad"], plan_t["k_pad"]
-            idx_f = np.concatenate(
-                [sub[perm].astype(np.int32),
-                 np.zeros(kf - K, np.int32)])
-            site = dict(
-                plan_f=plan_f, plan_t=plan_t, idx_f=idx_f,
-                # forward x index (column rows); pad rows -> zero row
-                cidx_f=pack_chunk_ids(crow_l[perm], kf,
-                                      plan_f["chunk"], fill=nseg_c),
-                # transposed x index (row rows); diagonal blocks and pad
-                # rows -> the zero row (replaces the r3 offm multiply)
-                ridx_t=pack_chunk_ids(
-                    np.where(off, rrow_l, nseg_r), kt,
-                    plan_t["chunk"], fill=nseg_r),
-            )
-    cache[ck] = site
-    return site
-
-
-def _plan_smv_stream(problem, ck, sub, rrow_l, crow_l, off,
-                     nseg_r, nseg_c, dr, dc, dtype):
-    """Freeze-time plan for the STREAMING S matvec site, or None.
-
-    The folded scan matvec (the `_s_matvec` default in the scan regime)
-    pays two unsorted XLA scatter-add segment_sums per call — ~14 ms each
-    at Venice-Final's 1.58M S blocks into 1778 pose rows — and with 10
-    PCG matvecs per solve those dominate the solve cost. This plan makes
-    both reductions destination-SORTED so the streaming Pallas kernel
-    (ops/pallas/segsum_stream.py) applies:
-
-    - forward (y_r += S x_c): stream a CSR-permuted copy of S (blocks
-      sorted by destination row);
-    - transposed (y_c += S^T x_r, off-diagonal masked): stream a
-      lane-transposed copy in the natural CSC order (the column
-      destination is already sorted).
-
-    Both copies are built ONCE PER SOLVE (`SchurOps.prepare_matvec`) and
-    amortized over the PCG iterations; per matvec only the x-row gathers
-    and one fused product+reduce kernel pass per direction remain.
-    Reference: the S block matvec of pcg_schur.hpp:108-163 /
-    schur.hpp:307-393 (whose atomicAdd scatter this restates as a
-    destination-sorted stream).
-    """
-    if os.environ.get("GRAPHITE_TPU_NO_SMV_STREAM"):
-        return None
-    cache = problem._cache.setdefault("smv_stream_sites", {})
-    if ck in cache:
-        return cache[ck]
-    site = None
-    K = sub.shape[0]
-    row_bytes = (dr * dc + dr + dc + 3) * 4
-    if K > _smv_chunk_rows(row_bytes):
-        # nseg_r + 1 buckets: the native counting sort writes
-        # count[key + 1] over a (n_buckets + 1)-sized vector, so a
-        # trash-row destination (== nseg_r, the seg_rows convention for
-        # masked blocks) must be in range. S structure currently excludes
-        # inactive blocks, but linearize.py uses the same convention
-        # defensively.
-        perm = hostops.stable_argsort(
-            rrow_l.astype(np.int64), nseg_r + 1).astype(np.int64)
-        plan_f = _get_stream_plan(problem, ck + ("sf",),
-                                  rrow_l[perm].astype(np.int32),
-                                  nseg_r, dtype)
-        plan_t = _get_stream_plan(problem, ck + ("st",),
-                                  crow_l.astype(np.int32), nseg_c, dtype)
-        if plan_f is not None and plan_t is not None:
-            kf, kt = plan_f["k_pad"], plan_t["k_pad"]
-
-            def pad_idx(a, k_pad):
-                # pad rows land on the plan's trailing TRASH segment, so
-                # any in-range source index works
-                return np.concatenate(
-                    [a.astype(np.int32),
-                     np.zeros(k_pad - K, np.int32)])
-
-            # flat lane transpose: T[c*dr + r] = r*dc + c, so
-            # S[:, lane_t] is the flat row-major (dc, dr) view of S^T
-            lane_t = (np.arange(dr * dc, dtype=np.int32)
-                      .reshape(dr, dc).T.reshape(-1))
-            site = dict(
-                plan_f=plan_f, plan_t=plan_t,
-                idx_f=pad_idx(sub[perm], kf),
-                colidx_f=pad_idx(crow_l[perm], kf),
-                idx_t=pad_idx(sub, kt),
-                rowidx_t=pad_idx(rrow_l, kt),
-                offm=np.concatenate(
-                    [off.astype(np.float32),
-                     np.zeros(kt - K, np.float32)]),
-                lane_t=lane_t,
-            )
-    cache[ck] = site
-    return site
-
-
-def _plan_backsub_tbl(problem, ck, K, lrow, prow, n_lt, n_pt, dr, dc,
-                      dtype):
-    """Backsub site for the in-kernel-gather streaming matvec, or None.
-
-    dx_l accumulation (schur.hpp:279-302): left = Hpl in natural CSC
-    order (landmark dst already sorted -> streaming reduce), transposed
-    product, x = dx_p rows gathered in-kernel (the r3 path paid a K-row
-    XLA gather per solve — 57 ms at Venice-Final)."""
-    if os.environ.get("GRAPHITE_TPU_NO_SMV_TBL"):
-        return None
-    from .ops.pallas.segmv import (
-        TABLE_ROWS_LIMIT,
-        pack_chunk_ids,
-        tpad,
-    )
-
-    cache = problem._cache.setdefault("backsub_tbl_sites", {})
-    if ck in cache:
-        return cache[ck]
-    site = None
-    row_bytes = (dr * dc + dr + dc) * 4
-    if (K > _smv_chunk_rows(row_bytes)
-            and tpad(n_pt + 1) <= TABLE_ROWS_LIMIT):
-        plan = _get_stream_plan(problem, ck + ("bs",),
-                                lrow.astype(np.int32), n_lt, dtype)
-        if plan is not None:
-            site = dict(
-                plan=plan,
-                pidx=pack_chunk_ids(prow, plan["k_pad"], plan["chunk"],
-                                    fill=n_pt),
-            )
-    cache[ck] = site
-    return site
-
-
-def _plan_bschur_fused(problem, ck, K, prow, n_pt, dp, dl, dtype):
-    """b_schur fused product+reduce site, or None.
-
-    b_S = b_p - Hpl (Hll^{-1} b_l) (schur.hpp:886-920) accumulates into
-    FEW pose rows in arbitrary order: the whole accumulator fits VMEM, so
-    one Pallas pass streams Hpl + the repeat-expanded w rows and reduces
-    by transposed one-hot matmuls (ops/pallas/segmv.block_matvec_stream)
-    — replacing the r3 lax.map block-matvec + XLA segment_sum pair
-    (132.5 ms/iter at Venice-Final, BENCH_r03 stages) with one kernel
-    that writes no K-row intermediate."""
-    if os.environ.get("GRAPHITE_TPU_NO_SMV_TBL"):
-        return None
-    if not _use_pallas(problem, dtype):
-        return None
-    from .ops.pallas.segmv import (
-        TABLE_ROWS_LIMIT,
-        pack_chunk_ids,
-        plan_block_matvec,
-        tpad,
-    )
-
-    cache = problem._cache.setdefault("bschur_fused_sites", {})
-    if ck in cache:
-        return cache[ck]
-    site = None
-    row_bytes = (dp * dl + dp + dl) * 4
-    if (K > _smv_chunk_rows(row_bytes)
-            and tpad(n_pt + 1) <= TABLE_ROWS_LIMIT):
-        plan = plan_block_matvec(K)
-        site = dict(
-            plan=plan,
-            dst=pack_chunk_ids(prow, plan["k_pad"], plan["chunk"],
-                               fill=n_pt),
-        )
-    cache[ck] = site
-    return site
-
-
-def _plan_bschur_wtbl(problem, ck, K, prow, lrow, n_pt, n_lt, dp, dl,
-                      dtype):
-    """b_schur site with a rolling two-block WINDOW of the w solve table
-    (ops/pallas/segmv.block_matvec_wtbl), or None.
-
-    The fused w_exp path repeat-expands the (n_lm, dl) solve table to a
-    (K, dl) stream whose 128-lane physical padding costs ~5 GB of HBM
-    traffic at Venice-Final; the CSC-sorted landmark ids make each chunk
-    touch a bounded id window, so the kernel reads the table rows
-    directly (schur.hpp:886-920 parity)."""
-    if (os.environ.get("GRAPHITE_TPU_NO_SMV_TBL")
-            or os.environ.get("GRAPHITE_TPU_NO_BSCHUR_WTBL")):
-        return None
-    if not _use_pallas(problem, dtype):
-        return None
-    from .ops.pallas.segmv import (
-        TABLE_ROWS_LIMIT,
-        pack_chunk_ids,
-        plan_matvec_wtbl,
-        slot_geom,
-        tpad,
-    )
-
-    cache = problem._cache.setdefault("bschur_wtbl_sites", {})
-    if ck in cache:
-        return cache[ck]
-    site = None
-    row_bytes = (dp * dl + dp + dl) * 4
-    if (K > _smv_chunk_rows(row_bytes)
-            and tpad(n_pt + 1) <= TABLE_ROWS_LIMIT
-            and slot_geom(dl) == (8, 16)):
-        plan = plan_matvec_wtbl(lrow.astype(np.int64), n_lt, K)
-        if plan is not None:
-            kp, chunk = plan["k_pad"], plan["chunk"]
-            site = dict(
-                plan=plan,
-                dst=pack_chunk_ids(prow, kp, chunk, fill=n_pt),
-                lid=pack_chunk_ids(lrow, kp, chunk, fill=n_lt),
-            )
-    cache[ck] = site
-    return site
+    it to force the fold, or the stepwise path, at toy scale)."""
+    return _map_chunk_rows(row_bytes)
 
 
 class SchurOps:
     """Bundles static structure with one set of (damped) H values.
 
     All vector IO is row-shaped per vertex type (free reshapes under the
-    type-major column layout) — flat scalar gathers/scatters are ~6x slower
-    on TPU.
+    type-major column layout).
     """
 
     def __init__(self, problem, ss: SchurStructure, hvals: HessianValues,
@@ -1464,123 +679,6 @@ class SchurOps:
         self.hvals = hvals
         self.sv = sv
         self._gdt = problem.precision.graph_dtype
-        # per-solve streaming-matvec operands; filled by prepare_matvec()
-        self._smv_prep = {}
-
-    def prepare_matvec(self):
-        """Hoist the per-solve operands of the STREAMING S matvec out of
-        the PCG loop (see `_plan_smv_stream`): the CSR-permuted wide copy
-        of S (forward direction) and the lane-transposed padded copy in
-        natural CSC order (transposed contributions). Call once per
-        solve, BEFORE `run_pcg` traces `s_matvec` into its while_loop
-        body, so both copies are loop-invariant and each of the ~10 PCG
-        matvecs pays only two x-row gathers + two fused streaming kernel
-        passes. Memory note: the original S block values are dead during
-        the PCG loop (b_schur and the preconditioner consume them before
-        it, landmark back-substitution reads Hpl/Hll^{-1}, not S), so the
-        steady-state cost of the two copies is ~one extra S.
-        """
-        problem = self.problem
-        ss = self.ss
-        prep = {}
-        sdt = jnp.dtype(problem.precision.stream_dtype)
-        for key in ss.s_keys:
-            dr_k, dc_k = key
-            S = self.sv.s_vals[key]
-            if not _use_pallas(problem, S.dtype):
-                continue
-            rows_b, cols_b = ss.s_rows[key], ss.s_cols[key]
-            # discover the streaming sites first (host-side planning
-            # only); prefer the round-4 in-kernel-gather sites
-            sites = []
-            tbl_sites = []
-            sym_sites = []
-            for rt, rsel, rrow in self._cached_partition(
-                    f"s_rows_{key}", rows_b):
-                for ct, csel, crow in self._cached_partition(
-                        f"s_cols_{key}_{rt}", cols_b[rsel]):
-                    sub = rsel[csel]
-                    ck = ("smv", key, rt, ct)
-                    off = rows_b[sub] != cols_b[sub]
-                    args = (problem, ck, sub, rrow[csel], crow, off,
-                            problem.seg_rows[rt], problem.seg_rows[ct],
-                            dr_k, dc_k, S.dtype)
-                    site = _plan_smv_sym(*args)
-                    if site is not None:
-                        sym_sites.append((ck, site, sub))
-                        continue
-                    site = _plan_smv_tbl(*args)
-                    if site is not None:
-                        tbl_sites.append((ck, site, sub))
-                        continue
-                    site = _plan_smv_stream(*args)
-                    if site is not None:
-                        sites.append((ck, site))
-            for ck, site, sub in sym_sites:
-                # ONE per-solve copy: the zero-padded natural-order
-                # stream in stream_dtype (no permuted/transposed copies)
-                kp = site["plan"]["k_pad"]
-                S_sub = _maybe_rows(problem, ck + ("ysub",),
-                                    S.astype(sdt), sub)
-                S_nat = jnp.zeros((kp, S.shape[1]), sdt)
-                S_nat = jax.lax.dynamic_update_slice(S_nat, S_sub, (0, 0))
-                prep[ck] = ("sym", site, S_nat)
-            if tbl_sites:
-                # per-solve copies in stream_dtype: the CSR-permuted
-                # forward stream (one row gather per SOLVE, amortized
-                # over the PCG iterations) and the zero-padded natural-
-                # order stream for the transposed direction (no lane
-                # transpose — the kernel's expansion one-hots transpose)
-                S_sdt = S.astype(sdt)
-                for ck, site, sub in tbl_sites:
-                    kt = site["plan_t"]["k_pad"]
-                    S_sub = _maybe_rows(problem, ck + ("tsub",), S_sdt,
-                                        sub)
-                    # idx_f = sub[perm] (k_pad-padded) indexes S directly
-                    S_f = S_sdt[problem.const(ck + ("tfidx",),
-                                              site["idx_f"])]
-                    S_nat = jnp.zeros((kt, S_sdt.shape[1]), sdt)
-                    S_nat = jax.lax.dynamic_update_slice(
-                        S_nat, S_sub, (0, 0))
-                    prep[ck] = ("tbl", site, S_f, S_nat)
-            if not sites:
-                continue
-            # S_t_full (the lane-transposed full table) and the wide view
-            # of S depend only on the key — computed ONCE per key, not per
-            # (row-type, col-type) partition pair (with multiple pose
-            # types that duplicated a 0.5 GB-scale matmul per pair).
-            # Exact flat lane transpose via a one-hot matmul (every output
-            # lane copies exactly one input lane — exact at any matmul
-            # precision; a lane-dim gather has no TPU fast path).
-            d = dr_k * dc_k
-            lane_t = sites[0][1]["lane_t"]
-            P = np.zeros((d, d), np.float32)
-            P[lane_t, np.arange(d)] = 1.0
-            # per-solve copies are pure bandwidth -> stream_dtype storage
-            # (bf16 under low-precision policies halves every PCG
-            # matvec's S traffic; the kernel accumulates in f32)
-            sdt = jnp.dtype(problem.precision.stream_dtype)
-            S_t_full = jax.lax.dot_general(
-                S.astype(jnp.float32), jnp.asarray(P),
-                (((1,), (0,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-            ).astype(sdt)
-            # HBM transient ordering: all S_t gathers run BEFORE any S_f
-            # gather so S_t_full is dead once the S_f copies materialize —
-            # peak live set is {S, S_t_full, S_t} then {S, S_t, S_f}
-            # (~3 S copies), not all four at once. Venice-Final runs 1-2 GB
-            # from the HBM limit (CLAUDE.md), so the PREP transient is the
-            # number that can crash the worker, not the steady state.
-            St_w = _wide_table(S_t_full)
-            s_ts = {
-                ck: St_w[problem.const(ck + ("stidx",), site["idx_t"])]
-                for ck, site in sites
-            }
-            Sw = _wide_table(S.astype(sdt))
-            for ck, site in sites:
-                S_f = Sw[problem.const(ck + ("sfidx",), site["idx_f"])]
-                prep[ck] = ("wide", site, S_f, s_ts[ck])
-        self._smv_prep = prep
 
     def hpl(self, key):
         return _maybe_rows(self.problem, ("hpl_h", key), self.hvals[key],
@@ -1599,7 +697,6 @@ class SchurOps:
         ss = self.ss
         out = {}
         eb = problem.elimination_block
-        n_lm = problem.n_blocks - eb
         lm_ids = np.arange(eb, problem.n_blocks)
         for t, sel, rows in self._cached_partition("lm_diag", lm_ids):
             d = problem.vertex_meta[t].vtype.dim
@@ -1615,7 +712,8 @@ class SchurOps:
     def b_schur(self, b: jax.Array) -> jax.Array:
         """b_S = b_p - Hpl Hll^{-1} b_l (schur.hpp:886-920) -> (dim_p,)."""
         with jax.default_matmul_precision(
-                self.problem.precision.matmul_precision):
+                self.problem.precision.matmul_precision), \
+                jax.named_scope("b_schur"):
             return self._b_schur(b)
 
     def _b_schur(self, b: jax.Array) -> jax.Array:
@@ -1643,20 +741,15 @@ class SchurOps:
                     ck = ("bschur", key, pt, lt)
                     K = sub.shape[0]
                     # Natural (lm, pose)-sorted order: the Hpl gather is
-                    # typically iota (eliminated). The pose-row
-                    # destination is unsorted, but with ~n_pose segments
-                    # one XLA segment_sum is cheap (44 ms at K=5M into
-                    # 1.8k rows, gather_micro.py).
+                    # typically iota (eliminated); the pose-row
+                    # destination is unsorted with ~n_pose segments.
                     Hsub_flat = _maybe_rows(problem, ck + ("sub",), Hpl,
                                             sub)
                     # w lookup: in CSC order lrow is NON-DECREASING, so
-                    # the 5M-row lookup from the small (n_lm, dl) solve
-                    # table is a repeat-EXPANSION (host counts), not a
-                    # wide gather — the r3 wide-gather form moved
-                    # K x 256 B (~1.3 GB at Venice-Final) where the
-                    # expansion moves K x dl x 4 (~60 MB); same trick as
-                    # the W build above (schur.hpp:886-920 walks the same
-                    # streams with atomicAdd).
+                    # the lookup from the small (n_lm, dl) solve table is
+                    # a repeat-EXPANSION (host counts), not a gather —
+                    # same trick as the W build above (schur.hpp:886-920
+                    # walks the same streams with atomicAdd).
                     bcache = problem._cache.setdefault("bschur_expand", {})
                     if ck not in bcache:
                         n_lm_rows = problem.seg_rows[lt]
@@ -1670,73 +763,11 @@ class SchurOps:
                         bcache[ck] = (is_sorted, counts)
                     is_sorted, counts_np = bcache[ck]
 
-                    wtbl = None
-                    if is_sorted:
-                        wtbl = _plan_bschur_wtbl(
-                            problem, ck, K, prow[lsel], lrow,
-                            problem.seg_rows[pt], problem.seg_rows[lt],
-                            dp, dl, Hpl.dtype)
-                    if wtbl is not None:
-                        # ONE Pallas pass reading w rows straight from a
-                        # rolling two-block window of the packed solve
-                        # table — no (K, dl) repeat-expanded stream (its
-                        # 128-lane physical padding costs ~5 GB at
-                        # Venice-Final)
-                        from .ops.pallas.segmv import block_matvec_wtbl
-
-                        sdt = jnp.dtype(problem.precision.stream_dtype)
-                        k_pad = wtbl["plan"]["k_pad"]
-                        Hpad = jnp.zeros((k_pad, dp * dl), sdt)
-                        Hpad = jax.lax.dynamic_update_slice(
-                            Hpad, Hsub_flat.astype(sdt), (0, 0))
-                        acc = block_matvec_wtbl(
-                            Hpad, w[lt].astype(sdt), wtbl["plan"],
-                            problem.const(ck + ("wdst",), wtbl["dst"]),
-                            problem.const(ck + ("wlid",), wtbl["lid"]),
-                            dp, dl, problem.seg_rows[pt],
-                            bf16_reduce=(sdt == jnp.bfloat16),
-                        ).astype(gdt)
-                        prev = out_rows.get(pt)
-                        out_rows[pt] = acc if prev is None else prev + acc
-                        continue
-
-                    fused = None
                     if is_sorted and K * dl * 4 <= W_EXPAND_BYTES:
                         w_exp = jnp.repeat(
                             jax.lax.optimization_barrier(w[lt]),
                             problem.const(ck + ("wcounts",), counts_np),
                             axis=0, total_repeat_length=K)
-                        fused = _plan_bschur_fused(
-                            problem, ck, K, prow[lsel],
-                            problem.seg_rows[pt], dp, dl, Hpl.dtype)
-
-                    if fused is not None:
-                        # ONE Pallas pass: Hpl stream x expanded-w stream
-                        # block products reduced straight into the
-                        # VMEM-resident pose accumulator (unsorted dst,
-                        # no K-row product intermediate, no scatter)
-                        from .ops.pallas.segmv import block_matvec_stream
-
-                        sdt = jnp.dtype(problem.precision.stream_dtype)
-                        plan = fused["plan"]
-                        k_pad = plan["k_pad"]
-                        Hpad = jnp.zeros((k_pad, dp * dl), sdt)
-                        Hpad = jax.lax.dynamic_update_slice(
-                            Hpad, Hsub_flat.astype(sdt), (0, 0))
-                        wpad = jnp.zeros((k_pad, dl), sdt)
-                        wpad = jax.lax.dynamic_update_slice(
-                            wpad, w_exp.astype(sdt), (0, 0))
-                        acc = block_matvec_stream(
-                            Hpad, wpad, plan,
-                            problem.const(ck + ("fdst",), fused["dst"]),
-                            dp, dl, problem.seg_rows[pt],
-                            bf16_reduce=(sdt == jnp.bfloat16),
-                        ).astype(gdt)
-                        prev = out_rows.get(pt)
-                        out_rows[pt] = acc if prev is None else prev + acc
-                        continue
-
-                    if is_sorted and K * dl * 4 <= W_EXPAND_BYTES:
 
                         def y_body(chunk_arrays, dp=dp, dl=dl):
                             hf, we = chunk_arrays
@@ -1747,22 +778,19 @@ class SchurOps:
                         y = _mapped_rows(y_body, (Hsub_flat, w_exp), K,
                                          (dp * dl + dp + dl) * 4)
                     else:
-                        wlt = _wide_table(w[lt])
                         lrow_c = problem.const(ck + ("lrow",),
                                                lrow.astype(np.int32))
 
-                        def y_body(chunk_arrays, dp=dp, dl=dl, wlt=wlt):
-                            # flat VPU block matvec: no tile-padded
-                            # (K, dp, dl) relayout (ops/blockfmt.py)
+                        def y_body(chunk_arrays, dp=dp, dl=dl, wlt=w[lt]):
                             hf, lr = chunk_arrays
                             return flat_block_mv(
-                                hf, wlt[lr][:, :dl], dp, dl,
+                                hf, wlt[lr], dp, dl,
                                 acc_dtype=wlt.dtype).astype(gdt)
 
                         y = _mapped_rows(y_body, (Hsub_flat, lrow_c), K,
                                          (dp * dl + dp + dl) * 4)
                     acc = _reduce_rows(problem, ck, y, prow[lsel],
-                                       problem.seg_rows[pt], gdt)
+                                       problem.seg_rows[pt])
                     prev = out_rows.get(pt)
                     out_rows[pt] = acc if prev is None else prev + acc
         flat = problem.flat_from_rows(
@@ -1773,7 +801,8 @@ class SchurOps:
     def s_matvec(self, x: jax.Array) -> jax.Array:
         """y = S x on (dim_p,) vectors (schur.hpp:307-393)."""
         with jax.default_matmul_precision(
-                self.problem.precision.matmul_precision):
+                self.problem.precision.matmul_precision), \
+                jax.named_scope("s_matvec"):
             return self._s_matvec(x)
 
     def _s_matvec(self, x: jax.Array) -> jax.Array:
@@ -1798,150 +827,26 @@ class SchurOps:
                     ck = ("smv", key, rt, ct)
                     K = sub.shape[0]
                     rrow_l = rrow[csel]
-
-                    prep = self._smv_prep.get(ck)
-                    if prep is not None and prep[0] == "sym":
-                        # Round-4 SYMMETRIC single-pass matvec: one
-                        # natural-order S read per matvec computes both
-                        # directions into VMEM pose tables; x gathered
-                        # in-kernel; no per-solve permuted copies.
-                        from .ops.pallas.segmv import (
-                            matvec_sym_stream,
-                            slot_geom,
-                            tpad as _tpad,
-                        )
-
-                        _, site, S_nat = prep
-                        sdt_k = S_nat.dtype
-                        xw = slot_geom(max(dr_k, dc_k))[0]
-                        nc = problem.seg_rows[ct]
-                        nr = problem.seg_rows[rt]
-                        xc = jnp.zeros((_tpad(nc + 1), xw), sdt_k)
-                        xc = jax.lax.dynamic_update_slice(
-                            xc, problem.rows_view(x, ct).astype(sdt_k),
-                            (0, 0))
-                        if rt == ct:
-                            xr = xc
-                        else:
-                            xr = jnp.zeros((_tpad(nr + 1), xw), sdt_k)
-                            xr = jax.lax.dynamic_update_slice(
-                                xr,
-                                problem.rows_view(x, rt).astype(sdt_k),
-                                (0, 0))
-                        yr, yc = matvec_sym_stream(
-                            S_nat, xc, xr,
-                            problem.const(ck + ("ycid",), site["cid"]),
-                            problem.const(ck + ("yrid",), site["rid"]),
-                            problem.const(ck + ("yrxi",), site["rxi"]),
-                            site["plan"], dr_k, dc_k, nr, nc)
-                        add_rows(rt, yr.astype(gdt))
-                        add_rows(ct, yc.astype(gdt))
-                        continue
-                    if prep is not None and prep[0] == "tbl":
-                        # Round-4 streaming matvec: S read exactly twice
-                        # per matvec (forward CSR-permuted copy + natural
-                        # order), x gathered IN-KERNEL from the tiny row
-                        # tables, transposed direction via expansion
-                        # one-hots (no lane-transposed copy), diagonal
-                        # masking via the zero x row.
-                        from .ops.pallas.segmv import tpad as _tpad
-                        from .ops.pallas.segsum_stream import (
-                            streaming_matvec_tbl,
-                        )
-
-                        _, site, S_f, S_nat = prep
-                        sdt_k = S_f.dtype
-                        xw = max(dr_k, dc_k)
-                        nc = problem.seg_rows[ct]
-                        nr = problem.seg_rows[rt]
-                        xc = jnp.zeros((_tpad(nc + 1), xw), sdt_k)
-                        xc = jax.lax.dynamic_update_slice(
-                            xc, problem.rows_view(x, ct).astype(sdt_k),
-                            (0, 0))
-                        yr = streaming_matvec_tbl(
-                            S_f, xc,
-                            problem.const(ck + ("cidxf",),
-                                          site["cidx_f"]),
-                            site["plan_f"], dr_k, dc_k, transpose=False,
-                            **_stream_consts(problem, ck + ("tf",),
-                                             site["plan_f"]))
-                        add_rows(rt, yr.astype(gdt))
-                        xr = jnp.zeros((_tpad(nr + 1), xw), sdt_k)
-                        xr = jax.lax.dynamic_update_slice(
-                            xr, problem.rows_view(x, rt).astype(sdt_k),
-                            (0, 0))
-                        yc = streaming_matvec_tbl(
-                            S_nat, xr,
-                            problem.const(ck + ("ridxt",),
-                                          site["ridx_t"]),
-                            site["plan_t"], dr_k, dc_k, transpose=True,
-                            **_stream_consts(problem, ck + ("tt",),
-                                             site["plan_t"]))
-                        add_rows(ct, yc.astype(gdt))
-                        continue
-                    if prep is not None:
-                        # r3 STREAMING matvec (wide pre-gathered x rows;
-                        # fallback when the pose row tables exceed the
-                        # in-kernel gather limit): both directions are
-                        # destination-sorted fused product+reduce kernel
-                        # passes — no scatter-add segment_sums, S read
-                        # exactly twice per matvec
-                        from .ops.pallas.segsum_stream import (
-                            streaming_segment_product_sum,
-                        )
-
-                        _, site, S_f, S_t = prep
-                        # x row streams in the same storage dtype as the
-                        # S copies (bandwidth); the kernel accumulates in
-                        # f32 and out_dtype=gdt avoids a lossy
-                        # f32->bf16->f32 round-trip of the RESULT
-                        xw_ct = _wide_table(
-                            problem.rows_view(x, ct).astype(S_f.dtype))
-                        right_f = xw_ct[problem.const(
-                            ck + ("scolf",), site["colidx_f"])]
-                        yr = streaming_segment_product_sum(
-                            S_f, right_f,
-                            site["plan_f"], dr_k, dc_k, 1, out_dtype=gdt,
-                            **_stream_consts(problem, ck + ("sf",),
-                                             site["plan_f"]))
-                        add_rows(rt, yr)
-                        xw_rt = _wide_table(
-                            problem.rows_view(x, rt).astype(S_t.dtype))
-                        offm = problem.const(ck + ("soffm",),
-                                              site["offm"])
-                        right_t = (xw_rt[problem.const(
-                            ck + ("srowt",), site["rowidx_t"])]
-                            * offm[:, None].astype(S_t.dtype))
-                        yc = streaming_segment_product_sum(
-                            S_t, right_t,
-                            site["plan_t"], dc_k, dr_k, 1, out_dtype=gdt,
-                            **_stream_consts(problem, ck + ("st",),
-                                             site["plan_t"]))
-                        add_rows(ct, yc)
-                        continue
-
-                    x_ct = _wide_table(problem.rows_view(x, ct))
-                    # Forward S x in natural CSC order: the wide S-block
-                    # gather is typically iota (eliminated); the row-block
+                    x_ct = problem.rows_view(x, ct)
+                    x_rt = problem.rows_view(x, rt)
+                    # Forward S x in natural CSC order: the S-block gather
+                    # is typically iota (eliminated); the row-block
                     # destination is unsorted but has only ~n_pose
-                    # segments, so one XLA segment_sum is cheap.
+                    # segments.
                     S_flat = _maybe_rows(problem, ck + ("sub",), S, sub)
                     crow_c = problem.const(ck + ("crow",),
                                            crow.astype(np.int32))
 
                     row_bytes = (dr_k * dc_k + dr_k + dc_k + 3) * 4
                     chunk = _smv_chunk_rows(row_bytes)
-                    if K > chunk and not os.environ.get(
-                            "GRAPHITE_TPU_NO_SMV_FOLD"):
+                    if K > chunk:
                         # Folded single-pass matvec for the scan regime:
                         # one scan reads each S block ONCE and folds both
                         # the forward (y_r += S x_c) and transposed
                         # (y_c += S^T x_r, off-diagonal only) segment sums
-                        # into the carry — the stepwise path reads S twice
-                        # plus a full off-diagonal S gather (~3x the HBM
-                        # traffic at Venice-Final's 1.58M blocks).
+                        # into the carry — the stepwise path below reads
+                        # S twice plus an off-diagonal S gather.
                         off = rows_b[sub] != cols_b[sub]
-                        x_rt = _wide_table(problem.rows_view(x, rt))
                         rrow_c = problem.const(
                             ck + ("rrow",), rrow_l.astype(np.int32))
                         offm = problem.const(
@@ -1954,16 +859,9 @@ class SchurOps:
                                       nseg_r=nseg_r, nseg_c=nseg_c):
                             yr, yc = carry
                             sf, cr, rr, om = chunk_arrays
-                            # flat VPU matvecs in gdt accumulation: no
-                            # tile-padded (K, 9, 9) relayout — the former
-                            # einsum form made each Venice-Final matvec
-                            # read ~25x its logical bytes
-                            # (tools/smv_variant_probe.py)
-                            xc = x_ct[cr][:, :dc_k]
-                            yf = flat_block_mv(sf, xc, dr_k, dc_k,
+                            yf = flat_block_mv(sf, x_ct[cr], dr_k, dc_k,
                                                acc_dtype=gdt)
-                            xr = x_rt[rr][:, :dr_k]
-                            yt = flat_block_mv_t(sf, xr, dr_k, dc_k,
+                            yt = flat_block_mv_t(sf, x_rt[rr], dr_k, dc_k,
                                                  acc_dtype=gdt)
                             yt = yt * om[:, None].astype(gdt)
                             yr = yr + jax.ops.segment_sum(
@@ -1984,24 +882,21 @@ class SchurOps:
                     def y_fwd(chunk_arrays, dr_k=dr_k, dc_k=dc_k,
                               x_ct=x_ct):
                         sf, cr = chunk_arrays
-                        return flat_block_mv(
-                            sf, x_ct[cr][:, :dc_k], dr_k, dc_k,
-                            acc_dtype=gdt)
+                        return flat_block_mv(sf, x_ct[cr], dr_k, dc_k,
+                                             acc_dtype=gdt)
 
                     y = _mapped_rows(y_fwd, (S_flat, crow_c), K,
                                      (dr_k * dc_k + dr_k + dc_k) * 4)
                     acc = _reduce_rows(problem, ck, y, rrow_l,
-                                       problem.seg_rows[rt], gdt)
+                                       problem.seg_rows[rt])
                     add_rows(rt, acc)
                     # transpose contribution for off-diagonal blocks: the
                     # CSC (col-major) storage order makes the column
-                    # destination already sorted — streaming kernel
-                    # applies with no permutation
+                    # destination already sorted
                     off = rows_b[sub] != cols_b[sub]
                     if np.any(off):
                         o = np.nonzero(off)[0]
                         Ko = o.shape[0]
-                        x_rt = _wide_table(problem.rows_view(x, rt))
                         cko = ck + ("t",)
                         St_flat = _maybe_rows(problem, cko + ("sub",), S,
                                               sub[o])
@@ -2011,14 +906,13 @@ class SchurOps:
                         def y_t(chunk_arrays, dr_k=dr_k, dc_k=dc_k,
                                 x_rt=x_rt):
                             sf, rr = chunk_arrays
-                            return flat_block_mv_t(
-                                sf, x_rt[rr][:, :dr_k], dr_k, dc_k,
-                                acc_dtype=gdt)
+                            return flat_block_mv_t(sf, x_rt[rr], dr_k,
+                                                   dc_k, acc_dtype=gdt)
 
                         y2 = _mapped_rows(y_t, (St_flat, rrow_o), Ko,
                                           (dr_k * dc_k + dr_k + dc_k) * 4)
                         acct = _reduce_rows(problem, cko, y2, crow[o],
-                                            problem.seg_rows[ct], gdt)
+                                            problem.seg_rows[ct])
                         add_rows(ct, acct)
         return problem.flat_from_rows(y_rows, dtype=gdt)[: ss.dim_p]
 
@@ -2029,7 +923,8 @@ class SchurOps:
         Returns per-landmark-type rows (type-row order).
         """
         with jax.default_matmul_precision(
-                self.problem.precision.matmul_precision):
+                self.problem.precision.matmul_precision), \
+                jax.named_scope("landmark_update"):
             return self._landmark_update(b, dx_p)
 
     def _landmark_update(self, b: jax.Array,
@@ -2042,79 +937,37 @@ class SchurOps:
             t: problem.rows_view(b, t).astype(gdt)
             for t, _, _ in self._cached_partition("lm_diag", lm_ids)
         }
-        sdt = jnp.dtype(problem.precision.stream_dtype)
         for key in ss.hpl_keys:
             dp, dl = key
             Hpl = self.hpl(key)
             lm_abs = ss.hpl_lm[key] + problem.elimination_block
             for pt, psel, prow in self._cached_partition(
                     f"hpl_pose_{key}", ss.hpl_pose[key]):
-                xrows_cache = {}
-
-                def xrows_wide(pt=pt):
-                    # fallback x row stream (wide-gathered per call)
-                    if "w" not in xrows_cache:
-                        xrows_cache["w"] = _wide_table(
-                            problem.rows_view(dx_p, pt).astype(sdt))
-                    return xrows_cache["w"]
-
+                # dx_p rows in InvP precision, like every Schur stage
+                x_pt = problem.rows_view(dx_p, pt).astype(
+                    problem.precision.inv_dtype)
                 for lt, lsel, lrow in self._cached_partition(
                         f"hpl_lm_{key}_{pt}", lm_abs[psel]):
                     sub = psel[lsel]
                     ck = ("lu", key, pt, lt)
                     K = sub.shape[0]
                     # Hpl is CSC (lm, pose)-sorted: lrow is already
-                    # destination-sorted (streaming kernel applies) and
-                    # `sub` is typically iota (gather eliminated).
+                    # destination-sorted and `sub` is typically iota
+                    # (gather eliminated).
                     Hsub_flat = _maybe_rows(problem, ck + ("sub",), Hpl,
                                             sub)
-                    site = _plan_backsub_tbl(
-                        problem, ck, K, lrow, prow[lsel],
-                        problem.seg_rows[lt], problem.seg_rows[pt],
-                        dp, dl, problem.precision.inv_dtype)
-                    if site is not None:
-                        # fused kernel: sequential Hpl stream, in-kernel
-                        # one-hot x gather, transposed product, sorted
-                        # landmark-dst streaming reduce
-                        from .ops.pallas.segmv import tpad as _tpad
-                        from .ops.pallas.segsum_stream import (
-                            streaming_matvec_tbl,
-                        )
-
-                        plan = site["plan"]
-                        Hpad = jnp.zeros((plan["k_pad"], dp * dl), sdt)
-                        Hpad = jax.lax.dynamic_update_slice(
-                            Hpad, Hsub_flat.astype(sdt), (0, 0))
-                        n_pt = problem.seg_rows[pt]
-                        xw = max(dp, dl)
-                        xtab = jnp.zeros((_tpad(n_pt + 1), xw), sdt)
-                        xtab = jax.lax.dynamic_update_slice(
-                            xtab,
-                            problem.rows_view(dx_p, pt).astype(sdt),
-                            (0, 0))
-                        y = streaming_matvec_tbl(
-                            Hpad, xtab,
-                            problem.const(ck + ("pidx",), site["pidx"]),
-                            plan, dp, dl, transpose=True,
-                            **_stream_consts(problem, ck + ("bs",),
-                                             plan))
-                        t_rows[lt] = t_rows[lt] - y.astype(gdt)
-                        continue
                     pr_c = problem.const(
                         ck + ("pr",), prow[lsel].astype(np.int32))
 
-                    def y_body(chunk_arrays, dp=dp, dl=dl):
-                        # flat VPU transposed block matvec (no 3-D
-                        # relayout, ops/blockfmt.py)
+                    def y_body(chunk_arrays, dp=dp, dl=dl, x_pt=x_pt):
                         hf, pr = chunk_arrays
-                        return flat_block_mv_t(
-                            hf, xrows_wide()[pr][:, :dp], dp, dl,
-                            acc_dtype=gdt)
+                        return flat_block_mv_t(hf, x_pt[pr], dp, dl,
+                                               acc_dtype=gdt)
 
                     y = _mapped_rows(y_body, (Hsub_flat, pr_c), K,
                                      (dp * dl + dp + dl) * 4)
                     acc = _reduce_rows(problem, ck, y, lrow,
-                                       problem.seg_rows[lt], gdt)
+                                       problem.seg_rows[lt])
                     t_rows[lt] = t_rows[lt] - acc
         return self._hll_solve_rows(t_rows)
 

@@ -1,8 +1,7 @@
 """Dense Cholesky direct solver.
 
-TPU stand-in for the reference's direct solvers on *small* problems. There is
-no TPU sparse direct factorization; this densifies ``H = J^T dL P J`` (the
-scaled system) and solves with ``jax.scipy.linalg.cho_solve``. It fills the
+Stand-in for the reference's direct solvers on *small* problems: this
+densifies ``H = J^T dL P J`` (the scaled system) and solves with ``jax.scipy.linalg.cho_solve``. It fills the
 role of ``EigenLDLTSolver``/``cudssSolver`` (reference: solver/eigen.hpp:12-99,
 solver/cudss.hpp:53-269) for the oracle ladder and small graphs; large sparse
 problems should use PCG / PCG-Schur (the reference's flagship path too).

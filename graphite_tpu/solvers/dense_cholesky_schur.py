@@ -24,8 +24,8 @@ from ..schur import SchurOps, build_schur_structure, schur_values
 from .pcg_schur import SchurSolverState
 
 
-# above this pose-block count the dense interleave runs in chunks (the
-# one-shot 4-D transpose is tile-padded ~14x on d-wide minor dims)
+# above this pose-block count the dense interleave runs in slabs, which
+# bounds the transient of the one-shot 4-D transpose
 _DENSE_INTERLEAVE_NPB = 512
 
 
@@ -71,8 +71,7 @@ def schur_to_dense(problem, ss, sv) -> jax.Array:
 
         # Large pose counts: build slab-by-slab. Gathering the full
         # (npb^2, d*d) pair grid plus its transposed copy materializes
-        # ~3 GB of transients at Venice-Final scale next to an LM loop
-        # already at the HBM limit (measured OOM); per-slab gathers keep
+        # ~3 GB of transients at Venice-1778 scale; per-slab gathers keep
         # the peak at the (n, n) output + one ~(c*npb, d*d) slab.
         c = max(1, 512 // d)  # block-rows per slab
         npb_pad = -(-npb // c) * c
@@ -147,7 +146,7 @@ class DenseCholeskySchurSolver:
         S = schur_to_dense(problem, ss, sv)
         if ss.dim_p >= 1024:
             # recursive blocked factorization: keeps all panel work as
-            # large MXU matmuls (see ops/blocked_cholesky.py)
+            # large matmuls (see ops/blocked_cholesky.py)
             from ..ops.blocked_cholesky import (
                 blocked_cho_solve, blocked_cholesky)
 

@@ -1,6 +1,6 @@
 """Matrix-free preconditioned conjugate gradients.
 
-TPU-native analog of ``PCGSolver`` (reference: solver/pcg.hpp:12-233), with
+JAX analog of ``PCGSolver`` (reference: solver/pcg.hpp:12-233), with
 the host PCG loop replaced by a ``lax.while_loop`` over a functional state.
 Semantics preserved exactly:
 
@@ -65,38 +65,6 @@ class PCGSolver:
             damp_vec = jnp.ones_like(diag) * damping
         else:
             damp_vec = diag * damping
-
-        # whole-PCG matrix-free Pallas kernel (pose-graph regime): the
-        # entire CG loop runs in one resident program when the folded J
-        # fits VMEM and the preconditioner is block-Jacobi/identity
-        # (ops/pallas/pcg_mf.py; reference pcg.hpp:61-232)
-        from ..ops.streamreduce import use_pallas
-        from ..preconditioners.block_jacobi import (
-            BlockJacobiPreconditioner,
-            BlockJacobiState,
-        )
-
-        site = None
-        if use_pallas(problem, gdt):
-            from ..ops.pallas.pcg_mf import plan_pcg_mf, solve_pcg_mf
-
-            if isinstance(self.preconditioner,
-                          (BlockJacobiPreconditioner,
-                           IdentityPreconditioner)):
-                site = plan_pcg_mf(problem, lin)
-        if site is not None:
-            if isinstance(pstate, BlockJacobiState):
-                name = site["vt_name"]
-                inv_rows = pstate.inv_blocks[name][problem.const(
-                    ("row_vertex", name),
-                    problem.row_vertex[name].astype("int32"))]
-            else:
-                inv_rows = None
-            x = solve_pcg_mf(problem, lin, site, damp_vec, inv_rows,
-                             self.max_iter, self.tol,
-                             self.rejection_ratio)
-            x = x.at[problem.dim_h:].set(0.0)
-            return x, jnp.asarray(True)
 
         def matvec(p):
             return hessian_matvec(problem, lin, p, params) + damp_vec * p

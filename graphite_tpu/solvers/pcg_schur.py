@@ -1,6 +1,6 @@
 """PCG on the explicit Schur system — the flagship bundle-adjustment path.
 
-TPU-native analog of ``PCGSchurSolver`` (reference: solver/pcg_schur.hpp:24-169):
+JAX analog of ``PCGSchurSolver`` (reference: solver/pcg_schur.hpp:24-169):
 
 - per solve: damp H, rebuild Schur values + preconditioner (:81-84);
 - PCG loop on ``S dx_p = b_S`` with the same normalization / rejection
@@ -33,9 +33,6 @@ from ..schur import SchurOps, build_schur_structure, schur_values
 @dataclasses.dataclass
 class SchurSolverState:
     hvals: HessianValues  # undamped Hessian block values
-    # damping-invariant wide stream copies (schur.prepare_stream_tables);
-    # None/{} when nothing streams
-    stream_tables: object = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,10 +41,9 @@ class PCGSchurSolver:
 
     ``dense_matvec_limit``: when the pose system is small enough
     (dim_p <= limit), the S block values are scattered into a dense
-    (dim_p, dim_p) matrix once per solve and the PCG matvec becomes one MXU
-    matmul — identical math, far faster than per-block gather/scatter on
-    TPU (dim_p is only 9*n_cameras for BAL). Set to 0 to force the
-    block-sparse matvec.
+    (dim_p, dim_p) matrix once per solve and the PCG matvec becomes one
+    matrix-vector product — identical math (dim_p is only 9*n_cameras for
+    BAL). Set to 0 to force the block-sparse matvec.
     """
 
     max_iter: int = 10
@@ -60,26 +56,15 @@ class PCGSchurSolver:
     preconditioner: object = dataclasses.field(
         default_factory=BlockJacobiSchurPreconditioner
     )
-    # 8192: a dense S at Venice-Final's dim_p = 16002 (1.02 GB) was
-    # measured to bring NO throughput gain (0.20 vs 0.208 it/s) while
-    # pushing the LM loop over the HBM limit on ~half of runs — the
-    # Venice solve cost lives elsewhere (see BENCHMARKS.md round 3).
+    # Venice-1778 (dim_p = 16,002) stays block-sparse: a dense S there
+    # holds 1.02 GB and is rebuilt every solve.
     dense_matvec_limit: int = 8192
-    # below this dim_p the WHOLE PCG loop runs as one VMEM-resident Pallas
-    # kernel (S, dense block-Jacobi M and all CG vectors on-chip; zero
-    # per-iteration dispatch) — the fix for the launch-bound small-problem
-    # regime (BENCHMARKS.md roofline). 0 disables.
-    fused_pcg_limit: int = 1024
 
     def prepare(self, problem, lin: Linearization, params=None):
-        from ..schur import prepare_stream_tables
-
         hs = build_hessian_structure(problem)
-        ss = build_schur_structure(problem)  # cache structure on first use
-        hvals = compute_hessian_values(problem, hs, lin)
+        build_schur_structure(problem)  # cache structure on first use
         return SchurSolverState(
-            hvals=hvals,
-            stream_tables=prepare_stream_tables(problem, ss, hvals))
+            hvals=compute_hessian_values(problem, hs, lin))
 
     def solve(self, problem, lin: Linearization, state: SchurSolverState,
               damping, use_identity: bool, params=None):
@@ -89,8 +74,7 @@ class PCGSchurSolver:
 
         hv = apply_damping(problem, hs, state.hvals, lin.diag, damping,
                            use_identity)
-        sv = schur_values(problem, ss, hv,
-                          stream_tables=state.stream_tables)
+        sv = schur_values(problem, ss, hv)
         ops = SchurOps(problem, ss, hv, sv)
         b_s = ops.b_schur(lin.b)
 
@@ -104,32 +88,9 @@ class PCGSchurSolver:
 
             S = schur_to_dense(problem, ss, sv)
 
-            from ..schur import _use_pallas
-
-            if (ss.dim_p <= self.fused_pcg_limit
-                    and _use_pallas(problem, S.dtype)
-                    and isinstance(self.preconditioner,
-                                   BlockJacobiSchurPreconditioner)):
-                from ..ops.pallas.pcg_dense import dense_pcg
-                from ..preconditioners.block_jacobi_schur import (
-                    dense_preconditioner_matrix,
-                )
-
-                M = dense_preconditioner_matrix(problem, ss, pstate, S.dtype)
-                dx_p = dense_pcg(
-                    S, M, b_s, max_iter=self.max_iter, tol=self.tol,
-                    rejection_ratio=self.rejection_ratio,
-                ).astype(gdt)
-                dx_l_rows = ops.landmark_update(lin.b, dx_p)
-                return ops.compose_delta(dx_p, dx_l_rows), jnp.asarray(True)
-
             def matvec(p):
                 return (S @ p.astype(S.dtype)).astype(gdt)
         else:
-            # hoist the streaming-matvec operands (CSR-permuted /
-            # lane-transposed S copies) out of the PCG while_loop — they
-            # are loop-invariant and amortize over max_iter matvecs
-            ops.prepare_matvec()
             matvec = ops.s_matvec
 
         dx_p = run_pcg(b_s, matvec, precond, self.max_iter, self.tol,

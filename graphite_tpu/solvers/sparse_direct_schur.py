@@ -1,6 +1,6 @@
 """Direct solve of the Schur (pose) system + landmark backsub.
 
-TPU-native analog of ``cudssSchurSolver``/``EigenSchurLDLTSolver``
+JAX analog of ``cudssSchurSolver``/``EigenSchurLDLTSolver``
 (reference: cudss_schur.hpp:13-235, eigen_schur.hpp:14-109). Two paths:
 
 - ``dim_p <= on_device_dim_p`` (default 20k, i.e. every published BAL
@@ -93,14 +93,10 @@ class SparseDirectSchurSolver:
     on_device_dim_p: int = 20_000
 
     def prepare(self, problem, lin: Linearization, params=None):
-        from ..schur import prepare_stream_tables
-
         hs = build_hessian_structure(problem)
-        ss = build_schur_structure(problem)
-        hvals = compute_hessian_values(problem, hs, lin)
+        build_schur_structure(problem)
         return SchurSolverState(
-            hvals=hvals,
-            stream_tables=prepare_stream_tables(problem, ss, hvals))
+            hvals=compute_hessian_values(problem, hs, lin))
 
     def solve(self, problem, lin: Linearization, state, damping,
               use_identity: bool, params=None):
@@ -110,8 +106,7 @@ class SparseDirectSchurSolver:
 
         hv = apply_damping(problem, hs, state.hvals, lin.diag, damping,
                            use_identity)
-        sv = schur_values(problem, ss, hv,
-                          stream_tables=state.stream_tables)
+        sv = schur_values(problem, ss, hv)
         ops = SchurOps(problem, ss, hv, sv)
         b_s = ops.b_schur(lin.b).astype(gdt)
 

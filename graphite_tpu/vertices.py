@@ -1,6 +1,6 @@
 """Vertex (optimizable-variable) traits and batched storage.
 
-TPU-native analog of the reference's vertex traits + ``VertexDescriptor``
+JAX analog of the reference's vertex traits + ``VertexDescriptor``
 (reference: include/graphite/vertex.hpp:14-384, docs/markdown/main.md:71-177).
 
 Differences by design (value semantics instead of pointer soup):

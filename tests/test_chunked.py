@@ -1,8 +1,8 @@
 """Chunked (scan) execution paths must match the fused paths exactly.
 
-The chunked paths normally trigger only above 2^19-2^20 rows (Venice-Final
-scale); here the thresholds are monkeypatched down so CI exercises them on
-tiny problems.
+The chunked paths normally trigger only at multi-million-row scale; here
+the thresholds are monkeypatched down so CI exercises them on tiny
+problems.
 """
 
 import importlib
@@ -92,17 +92,22 @@ def test_chunked_matches_fused(small_chunks):
     )
 
 
-def test_chunk_threshold_scales_with_problem_size():
-    """Huge problems cap the fusion bound (HBM headroom — the 2^22
-    transients crash the TPU worker at Venice-Final scale; see
-    _chunk_threshold)."""
+def test_chunk_threshold_scales_with_problem_size(monkeypatch):
+    """The one-shot product batch is bounded by device memory: rows x row
+    bytes may take a quarter of the allocator's limit, so wider products
+    and smaller devices chunk sooner. A backend that reports no limit
+    (the CPU) keeps the fixed CHUNK_THRESHOLD row bound."""
     import graphite_tpu.schur as S
 
-    class _P:
-        dim_h = 100_000
+    monkeypatch.setattr(S, "device_bytes_limit", lambda: None)
+    assert S._chunk_threshold(468) == S.CHUNK_THRESHOLD
 
-    class _PBig:
-        dim_h = 3_000_000
-
-    assert S._chunk_threshold(_P()) == S.CHUNK_THRESHOLD
-    assert S._chunk_threshold(_PBig()) == min(S.CHUNK_THRESHOLD, 1 << 19)
+    gb60 = 60 << 30
+    monkeypatch.setattr(S, "device_bytes_limit", lambda: gb60)
+    assert S._chunk_threshold(468) == gb60 // 4 // 468
+    # Venice-1778's 17.1M 9x3x9 pair products run one-shot in 60 GB ...
+    assert S._chunk_threshold((81 + 18 * 3) * 4) > 17_100_000
+    # ... and twice-as-wide rows halve the bound
+    assert S._chunk_threshold(2 * 468) == gb60 // 4 // (2 * 468)
+    monkeypatch.setattr(S, "device_bytes_limit", lambda: 4 << 30)
+    assert S._chunk_threshold(468) < 17_100_000

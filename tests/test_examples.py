@@ -7,6 +7,13 @@ import sys
 import pytest
 
 
+@pytest.fixture(autouse=True)
+def _no_compile_cache(monkeypatch, tmp_path):
+    # the examples enable the persistent compile cache unless this is set;
+    # JAX read it at import, so setting it now turns no caching on
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+
+
 def _run(path, argv):
     old = sys.argv
     sys.argv = [path] + argv

@@ -1,7 +1,7 @@
 """Nested-dissection multifrontal Cholesky vs scipy and dense oracles.
 
 The level-batched ND factorization (ops/nd_multifrontal.py) is the
-on-device sparse-direct path past the dense densify ceiling — the TPU
+on-device sparse-direct path past the dense densify ceiling — the
 analog of the reference's cuDSS sparse factorization at any size
 (cudss.hpp:53-269). Oracles: scipy splu on the exported scalar CSC
 (1e-10), and the full LM trajectory against the host-callback sparse

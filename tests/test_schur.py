@@ -1,6 +1,6 @@
 """Schur complement oracle ladder (reference tests/schur.cu):
 
-- GPU(TPU) Schur matrix / b_Schur / landmark update vs a dense NumPy
+- Schur matrix / b_Schur / landmark update vs a dense NumPy
   reference to 1e-12 on a 2-camera/3-point BAL problem (schur.cu:113-240);
 - full vs Schur direct solvers agree to 1e-8 (schur.cu:242-338);
 - PCG-Schur (512 iters, tol 1e-14, rejection 1e6) vs direct to 5e-4
@@ -128,8 +128,7 @@ def test_full_vs_schur_direct_agreement():
     x_schur = _solve_with(problem, lin, DenseCholeskySchurSolver())
     x_sp = _solve_with(problem, lin, SparseDirectSolver())
     x_sps = _solve_with(problem, lin, SparseDirectSchurSolver())
-    # on-device full-H dense path (forced on this CPU backend): the TPU
-    # default where host callbacks do not exist (cudss.hpp:53-269 analog)
+    # on-device full-H dense path, forced (cudss.hpp:53-269 analog)
     x_dev = _solve_with(problem, lin, SparseDirectSolver(on_device=True))
     atol = 1e-8 * max(1.0, np.abs(x_full).max())
     np.testing.assert_allclose(x_schur, x_full, rtol=1e-8, atol=atol)

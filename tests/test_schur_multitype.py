@@ -49,9 +49,9 @@ F41 = gt.factor_type("mt_f41", 1, [POSE4, LM1], f41, obs_shape=(1,))
 F23 = gt.factor_type("mt_f23", 2, [POSE2, LM3], f23, obs_shape=(2,))
 
 
-def _problem(seed=0):
+def _problem(seed=0, precision=gt.FP64_FP64):
     rng = np.random.default_rng(seed)
-    g = gt.Graph(precision=gt.FP64_FP64)
+    g = gt.Graph(precision=precision)
     p4 = g.add_vertex_set(POSE4)
     p2 = g.add_vertex_set(POSE2)
     l3 = g.add_vertex_set(LM3)
@@ -150,9 +150,7 @@ def test_equal_dims_mixed_group_schur_matches_dense():
     value group holds pose-diagonal, landmark-diagonal, pose-pose
     off-diagonal AND pose-landmark blocks, so ``hpl_h_idx`` is NOT the
     identity — the triple-product right-operand indices must be composed
-    through it (a silent wrong-rows read before round 5; the hoisted
-    stream tables of ``prepare_stream_tables`` rely on the same
-    composition for damping-invariance)."""
+    through it (a silent wrong-rows read before round 5)."""
     rng = np.random.default_rng(4)
     g = gt.Graph(precision=gt.FP64_FP64)
     p3 = g.add_vertex_set(POSE3)

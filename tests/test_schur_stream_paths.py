@@ -1,23 +1,16 @@
-"""The streaming-kernel paths of b_schur / landmark_update / s_matvec,
-exercised on CPU via Pallas interpret mode + a forced `_use_pallas`.
+"""The folded single-pass S matvec of ``SchurOps.s_matvec`` (one scan reads
+each S block once and folds the forward and transposed segment sums into
+its carry) against the stepwise two-stream path it replaces above the
+scan-chunk budget (reference ops/schur.hpp:190-263, schur.hpp:307-393).
 
-On hardware these paths replace XLA's scatter-add segment_sums (229 ms at
-Venice-Final shapes) with the destination-sorted streaming kernel
-(~21 ms, tools/venice_microbench.py); here we only verify they are exact
-against the portable XLA fallback (reference ops/schur.hpp:190-263).
+The fold engages when the S block count exceeds ``_smv_chunk_rows``;
+monkeypatching that bound selects either path at toy scale.
 """
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 import graphite_tpu as gt
-import graphite_tpu.ops.pallas.segsum as sg_mod
-import graphite_tpu.ops.pallas.segsum_stream as ss_mod
-import graphite_tpu.ops.streamreduce as sr_mod
 import graphite_tpu.schur as schur_mod
 from graphite_tpu.hessian import (
     apply_damping,
@@ -29,32 +22,7 @@ from graphite_tpu.io.bal import build_graph
 from graphite_tpu.linearize import linearize
 from graphite_tpu.schur import SchurOps, build_schur_structure, schur_values
 
-
-@pytest.fixture
-def _force_stream(monkeypatch):
-    import graphite_tpu.ops.pallas.segmv as segmv_mod
-
-    # these are PATH-equivalence tests at 1e-5 tolerance: pin f32 stream
-    # transport (the round-4 default is bf16; precision is tested
-    # separately by the *_bf16_storage oracles)
-    monkeypatch.setenv("GRAPHITE_TPU_STREAM_DTYPE", "f32")
-    interp = functools.partial(jax.experimental.pallas.pallas_call,
-                               interpret=True)
-    monkeypatch.setattr(ss_mod.pl, "pallas_call", interp)
-    monkeypatch.setattr(sg_mod.pl, "pallas_call", interp)
-    monkeypatch.setattr(segmv_mod.pl, "pallas_call", interp)
-    # small plan windows so the toy problem actually streams/flushes
-    orig = sr_mod.get_stream_plan
-
-    def tiny_chunk(problem, tag, seg, num_segments, dtype,
-                   chunk=sr_mod.STREAM_CHUNK):
-        return orig(problem, tag, seg, num_segments, dtype, chunk=256)
-
-    always = lambda problem, dtype, sharded_ok=False: True  # noqa: E731
-    monkeypatch.setattr(sr_mod, "get_stream_plan", tiny_chunk)
-    monkeypatch.setattr(sr_mod, "use_pallas", always)
-    monkeypatch.setattr(schur_mod, "_get_stream_plan", tiny_chunk)
-    monkeypatch.setattr(schur_mod, "_use_pallas", always)
+STEPWISE = 1 << 30  # no S group exceeds this: the stepwise path runs
 
 
 def _setup(name="mini", precision=gt.FP32_FP32):
@@ -70,186 +38,6 @@ def _setup(name="mini", precision=gt.FP32_FP32):
     return problem, lin, hs, ss, hv, sv
 
 
-def test_stream_paths_match_fallback(_force_stream):
-    problem, lin, hs, ss, hv, sv = _setup()
-    ops = SchurOps(problem, ss, hv, sv)
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(rng.normal(size=ss.dim_p).astype(np.float32))
-
-    b_s = np.asarray(ops.b_schur(lin.b))
-    y = np.asarray(ops.s_matvec(x))
-    rows = ops.landmark_update(lin.b, x)
-    dx = np.asarray(ops.compose_delta(x, rows))
-
-    # the interpret-mode plans really engaged (not silently infeasible):
-    # landmark_update and the s_matvec transpose have CSC-sorted
-    # destinations; b_schur / forward s_matvec reduce to unsorted pose
-    # rows and must fall back to one-shot XLA segment_sums
-    plans = problem._cache.get("stream_site_plans", {})
-    engaged = [t for t, p in plans.items() if p.get("feasible")]
-    assert any(t[0] == "lu" for t in engaged)
-    assert any(t[0] == "smv" and "t" in t for t in engaged)
-    assert not any(t[0] == "bschur" for t in engaged)
-
-    # fresh problem, pure XLA fallback
-    problem2, lin2, hs2, ss2, hv2, sv2 = _setup()
-    problem2._cache["stream_site_plans"] = {
-        t: dict(feasible=False) for t in plans
-    }
-    ops2 = SchurOps(problem2, ss2, hv2, sv2)
-    b_s2 = np.asarray(ops2.b_schur(lin2.b))
-    y2 = np.asarray(ops2.s_matvec(x))
-    rows2 = ops2.landmark_update(lin2.b, x)
-    dx2 = np.asarray(ops2.compose_delta(x, rows2))
-
-    np.testing.assert_allclose(b_s, b_s2, rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(y, y2, rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(dx, dx2, rtol=1e-5, atol=1e-4)
-
-
-@pytest.mark.parametrize("fused_env", [None, "1"])
-def test_streamed_parts_product_matches_simple(_force_stream, monkeypatch,
-                                               fused_env):
-    """The HBM-streamed PARTS path of schur_values (in-kernel fused
-    product by default; wide-gather + XLA product + streaming reduction
-    with GRAPHITE_TPU_NO_FUSED_STREAM=1) against the one-shot path."""
-    if fused_env is None:
-        monkeypatch.delenv("GRAPHITE_TPU_NO_FUSED_STREAM", raising=False)
-    else:
-        monkeypatch.setenv("GRAPHITE_TPU_NO_FUSED_STREAM", fused_env)
-    # reference: default one-shot product path
-    problem, lin, hs, ss, hv, sv_ref = _setup()
-    # force K > threshold and multiple small parts
-    monkeypatch.setattr(schur_mod, "CHUNK_THRESHOLD", 16)
-    monkeypatch.setattr(schur_mod, "STREAM_PART_ROWS", 1 << 10)
-    problem2, lin2, hs2, ss2, hv2, sv2 = _setup()
-    parts_cache = problem2._cache.get("segsum_stream_plans", {})
-    assert any(v for v in parts_cache.values()), (
-        "streamed parts path did not engage")
-    for k in sv_ref.s_vals:
-        np.testing.assert_allclose(
-            np.asarray(sv2.s_vals[k]), np.asarray(sv_ref.s_vals[k]),
-            rtol=1e-4, atol=1e-4)
-
-
-def test_streamed_parts_with_stream_tables(_force_stream, monkeypatch):
-    """prepare_stream_tables (built from UNDAMPED values, once per
-    linearization) feeding schur_values under NONZERO damping ≡ the
-    per-solve table rebuild: the hoisted right-operand stream gathers
-    only pose-landmark rows, which apply_damping never rewrites."""
-    monkeypatch.setattr(schur_mod, "CHUNK_THRESHOLD", 16)
-    monkeypatch.setattr(schur_mod, "STREAM_PART_ROWS", 1 << 10)
-    problem, lin, hs, ss, hv, sv_ref = _setup()  # hv damped at 1e-2
-    hv0 = compute_hessian_values(problem, hs, lin)  # undamped
-    tables = schur_mod.prepare_stream_tables(problem, ss, hv0)
-    assert tables, "no stream tables built (streamed path not engaged)"
-    sv_tbl = schur_values(problem, ss, hv, stream_tables=tables)
-    for k in sv_ref.s_vals:
-        np.testing.assert_allclose(
-            np.asarray(sv_tbl.s_vals[k]), np.asarray(sv_ref.s_vals[k]),
-            rtol=1e-4, atol=1e-4)
-
-    # kill switch: prepare returns {} (per-solve rebuild path)
-    monkeypatch.setenv("GRAPHITE_TPU_NO_STREAM_TABLES", "1")
-    assert schur_mod.prepare_stream_tables(problem, ss, hv0) == {}
-
-
-@pytest.mark.parametrize("variant", ["sym", "tbl", "wide"])
-def test_s_matvec_streaming_matches_fallback(_force_stream, monkeypatch,
-                                             variant):
-    """prepare_matvec + the streaming S matvec ≡ the portable
-    folded/stepwise path. Three prepared variants: the round-4 symmetric
-    single-pass sites ("sym", the default), the in-kernel x-gather dual-
-    direction sites ("tbl", forced via GRAPHITE_TPU_NO_SMV_SYM) and the
-    r3 wide pre-gathered-x sites ("wide", via GRAPHITE_TPU_NO_SMV_TBL)."""
-    if variant == "tbl":
-        monkeypatch.setenv("GRAPHITE_TPU_NO_SMV_SYM", "1")
-    if variant == "wide":
-        monkeypatch.setenv("GRAPHITE_TPU_NO_SMV_TBL", "1")
-    monkeypatch.setattr(schur_mod, "_smv_chunk_rows", lambda rb: 4)
-    problem, lin, hs, ss, hv, sv = _setup()
-    ops = SchurOps(problem, ss, hv, sv)
-    ops.prepare_matvec()
-    assert ops._smv_prep, "no streaming matvec site engaged"
-    kinds = {p[0] for p in ops._smv_prep.values()}
-    assert kinds == {variant}
-    rng = np.random.default_rng(7)
-    x = jnp.asarray(rng.normal(size=ss.dim_p).astype(np.float32))
-    y = np.asarray(ops.s_matvec(x))
-
-    # fresh problem, no prepare -> folded/stepwise XLA path
-    problem2, lin2, hs2, ss2, hv2, sv2 = _setup()
-    y2 = np.asarray(SchurOps(problem2, ss2, hv2, sv2).s_matvec(x))
-    np.testing.assert_allclose(y, y2, rtol=1e-5, atol=1e-4)
-
-    # kill switch restores the fallback even after prepare_matvec
-    monkeypatch.setenv("GRAPHITE_TPU_NO_SMV_STREAM", "1")
-    problem3, lin3, hs3, ss3, hv3, sv3 = _setup()
-    ops3 = SchurOps(problem3, ss3, hv3, sv3)
-    ops3.prepare_matvec()
-    assert not ops3._smv_prep
-
-
-def test_pcg_schur_solve_with_streaming_matvec(_force_stream, monkeypatch):
-    """Full PCGSchurSolver.solve with the streaming matvec engaged (the
-    prepared S copies ride the PCG while_loop as loop invariants) ≡ the
-    same solve with the kill switch set."""
-    monkeypatch.setattr(schur_mod, "_smv_chunk_rows", lambda rb: 4)
-    from graphite_tpu.solvers import PCGSchurSolver
-
-    solver = PCGSchurSolver(max_iter=5, dense_matvec_limit=0,
-                            fused_pcg_limit=0)
-    damping = jnp.asarray(1e-2, jnp.float32)
-
-    problem, lin, hs, ss, hv, sv = _setup()
-    st = solver.prepare(problem, lin)
-    dx, ok = solver.solve(problem, lin, st, damping, False)
-    sites = {**problem._cache.get("smv_stream_sites", {}),
-             **problem._cache.get("smv_tbl_sites", {}),
-             **problem._cache.get("smv_sym_sites", {})}
-    assert any(v is not None for v in sites.values()), (
-        "streaming matvec did not engage in the solve")
-
-    monkeypatch.setenv("GRAPHITE_TPU_NO_SMV_STREAM", "1")
-    problem2, lin2, hs2, ss2, hv2, sv2 = _setup()
-    st2 = solver.prepare(problem2, lin2)
-    dx2, ok2 = solver.solve(problem2, lin2, st2, damping, False)
-    np.testing.assert_allclose(np.asarray(dx), np.asarray(dx2),
-                               rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("variant", ["wtbl", "fused"])
-def test_b_schur_fused_matches_fallback(_force_stream, monkeypatch,
-                                        variant):
-    """The fused b_schur passes — windowed-w-table kernel (default,
-    ops/pallas/segmv.block_matvec_wtbl) and the expanded-w-stream kernel
-    (GRAPHITE_TPU_NO_BSCHUR_WTBL, block_matvec_stream) — ≡ the lax.map +
-    segment_sum fallback (schur.hpp:886-920)."""
-    if variant == "fused":
-        monkeypatch.setenv("GRAPHITE_TPU_NO_BSCHUR_WTBL", "1")
-    monkeypatch.setattr(schur_mod, "_smv_chunk_rows", lambda rb: 4)
-    problem, lin, hs, ss, hv, sv = _setup()
-    ops = SchurOps(problem, ss, hv, sv)
-    b_s = np.asarray(ops.b_schur(lin.b))
-    cache_name = ("bschur_wtbl_sites" if variant == "wtbl"
-                  else "bschur_fused_sites")
-    sites = problem._cache.get(cache_name, {})
-    assert any(v is not None for v in sites.values()), (
-        f"{variant} b_schur site did not engage")
-
-    monkeypatch.setenv("GRAPHITE_TPU_NO_SMV_TBL", "1")
-    problem2, lin2, hs2, ss2, hv2, sv2 = _setup()
-    ops2 = SchurOps(problem2, ss2, hv2, sv2)
-    b_s2 = np.asarray(ops2.b_schur(lin2.b))
-    assert not any(
-        v is not None
-        for v in problem2._cache.get("bschur_fused_sites", {}).values())
-    assert not any(
-        v is not None
-        for v in problem2._cache.get("bschur_wtbl_sites", {}).values())
-    np.testing.assert_allclose(b_s, b_s2, rtol=1e-5, atol=1e-4)
-
-
 def test_s_matvec_folded_matches_stepwise(monkeypatch):
     """The folded single-pass S matvec (one S read, fwd+transpose segment
     sums in the scan carry) ≡ the stepwise two-stream path."""
@@ -258,11 +46,9 @@ def test_s_matvec_folded_matches_stepwise(monkeypatch):
     rng = np.random.default_rng(3)
     x = jnp.asarray(rng.normal(size=ss.dim_p).astype(np.float32))
 
-    monkeypatch.setenv("GRAPHITE_TPU_NO_SMV_FOLD", "1")
-    problem._cache.pop("consts", None)
+    monkeypatch.setattr(schur_mod, "_smv_chunk_rows", lambda rb: STEPWISE)
     y_step = np.asarray(ops.s_matvec(x))
 
-    monkeypatch.delenv("GRAPHITE_TPU_NO_SMV_FOLD")
     monkeypatch.setattr(schur_mod, "_smv_chunk_rows", lambda rb: 128)
     y_fold = np.asarray(ops.s_matvec(x))
     np.testing.assert_allclose(y_fold, y_step, rtol=2e-6, atol=1e-4)
@@ -275,9 +61,8 @@ def test_s_matvec_folded_bf16_storage(monkeypatch):
     rng = np.random.default_rng(5)
     x = jnp.asarray(rng.normal(size=ss.dim_p).astype(np.float32))
 
-    monkeypatch.setenv("GRAPHITE_TPU_NO_SMV_FOLD", "1")
+    monkeypatch.setattr(schur_mod, "_smv_chunk_rows", lambda rb: STEPWISE)
     y_step = np.asarray(ops.s_matvec(x))
-    monkeypatch.delenv("GRAPHITE_TPU_NO_SMV_FOLD")
     monkeypatch.setattr(schur_mod, "_smv_chunk_rows", lambda rb: 16)
     y_fold = np.asarray(ops.s_matvec(x))
     np.testing.assert_allclose(y_fold, y_step, rtol=2e-2, atol=1e-2)

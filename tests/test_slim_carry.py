@@ -6,9 +6,8 @@ trajectory must be identical to the full-carry run
 
 Reference: the trust-region loop of
 optimizer/levenberg_marquardt.hpp:166-238 mutates state in place; the
-functional carry is the TPU-side analog and the slimming removes the
-accept/reject cond-select pass over Jacobian storage (~0.5 GB at
-Venice-Final scale).
+functional carry is the JAX analog and the slimming removes the
+accept/reject cond-select pass over Jacobian storage.
 """
 
 import os

@@ -27,6 +27,7 @@ MODULES = [
     "graphite_tpu.loss",
     "graphite_tpu.hessian",
     "graphite_tpu.schur",
+    "graphite_tpu.schur_reference",
     "graphite_tpu.covariance",
     "graphite_tpu.solvers",
     "graphite_tpu.solvers.pcg",
@@ -49,12 +50,12 @@ MODULES = [
     "graphite_tpu.io.synthetic",
     "graphite_tpu.io.checkpoint",
     "graphite_tpu.ops.blocked_cholesky",
-    "graphite_tpu.ops.pallas.segsum",
-    "graphite_tpu.ops.pallas.segsum_stream",
+    "graphite_tpu.ops.streamreduce",
     "graphite_tpu.ops.blockfmt",
     "graphite_tpu.ops.segment",
     "graphite_tpu.ops.batched_linalg",
     "graphite_tpu.perf",
+    "graphite_tpu.runtime",
     "graphite_tpu.hostops",
 ]
 

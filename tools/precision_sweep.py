@@ -1,18 +1,17 @@
-"""On-chip precision sweep (VERDICT r1 item 8) + direct-Schur timing.
+"""On-card precision sweep + direct-Schur timing.
 
 Runs the bench workload (synthetic Ladybug-49, LM + PCG-Schur, jit_loop)
-on the real TPU chip for each Jacobian-storage precision policy and
-reports measured iters/sec and final cost against FP32_FP32 — the
-on-hardware version of the reference's T x S precision matrix
-(examples/bal.cu:311-314).
+on the GPU for each Jacobian-storage precision policy and reports measured
+iters/sec and final cost against FP32_FP32 — the on-hardware version of
+the reference's T x S precision matrix (examples/bal.cu:311-314).
 
 Also times the direct-Schur solver both ways — on-device blocked Cholesky
 vs host-callback SciPy (cudss_schur.hpp:190-233 vs eigen.hpp:41-44
-analogs) — to ground the claim that the on-device path wins.
+analogs).
 
-    python tools/precision_sweep.py [size] [iterations]
+    PYTHONPATH=. python tools/precision_sweep.py [size] [iterations]
 
-Results are recorded in BENCHMARKS.md.
+Exits non-zero without a GPU.
 """
 
 import sys
@@ -24,10 +23,14 @@ def log(*a):
 
 
 def main():
-    import jax
+    from graphite_tpu.runtime import (
+        card_info,
+        enable_compile_cache,
+        require_gpu,
+    )
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/graphite_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    devices = require_gpu()
+    enable_compile_cache()
 
     import graphite_tpu as gt
     from graphite_tpu.io import bal as bal_io
@@ -43,7 +46,8 @@ def main():
 
     size = sys.argv[1] if len(sys.argv) > 1 else "ladybug"
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 20
-    log(f"devices: {jax.devices()}  size={size}  iterations={iters}")
+    log(f"devices: {devices}  card (name, power limit): {card_info()}  "
+        f"size={size}  iterations={iters}")
     ds = synthetic.make_bal(size, seed=0)
 
     def run(precision, solver):
